@@ -1,0 +1,348 @@
+#!/usr/bin/env python3
+"""End-to-end check of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run if it fails:
+
+1. Build: ``nvcc`` compiles the three CUDA kernels of ``kernels/csrc`` from
+   the checkout into ``build/repro_torch/<hash>/``.
+2. Kernels against their plain PyTorch versions at the slice's shapes:
+   ``gam_retrieve`` (rows, counts and skip map exact, scores within 4 ulp),
+   ``tess_project`` (exact except certified near-ties) and ``gam_score``.
+3. The slice: a 1,048,576-item catalog of the paper's schema (k=10,
+   parse_tree, threshold 0.2, min_overlap 2, kappa 10), cluster-sorted with
+   64 clusters at sigma 0.05, posting bucket sized to the longest list, is
+   built with ``open_retriever(..., device="cuda")`` and answers 8 requests
+   of 256 cluster-sorted queries (after one warm-up request).  The launch
+   counts of all three kernels must move; the served ids must equal the
+   dense oracle ``masked_topk`` (through the ``gam_score`` kernel) exactly;
+   ``exact=True`` must equal ``brute``; a snapshot must round-trip
+   bit-identically.  Recovery accuracy against ``brute``, the discarded
+   fraction, the scored-tile fraction and request latency are printed.
+4. Timings: each kernel's median time, its plain version's, and its bound
+   on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32), printed as one ``kernels``
+   JSON line; then the card's name and power limit; then the result line.
+
+Exits non-zero, printing no result, without a CUDA device or without the
+rest of the repository.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+N_ITEMS = 1 << 20
+K, N_CLUSTERS, SIGMA, THRESHOLD, MIN_OVERLAP, KAPPA = 10, 64, 0.05, 0.2, 2, 10
+N_REQUESTS, BATCH = 8, 256
+ULP = 4
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_FLOPS = 67e12              # H100 SXM data sheet, outside the tensor cores
+
+
+def fail_unless(cond, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def clustered_catalog(n, k, n_clusters, sigma, seed):
+    """Cluster-sorted unit rows around ``n_clusters`` unit centers."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, k)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    per = -(-n // n_clusters)
+    items = (np.repeat(centers, per, axis=0)[:n]
+             + sigma * rng.normal(size=(n, k)).astype(np.float32))
+    items /= np.linalg.norm(items, axis=1, keepdims=True)
+    return items, centers
+
+
+def requests(centers, n, batch, sigma, seed):
+    """``n`` batches of queries drawn around centers, sorted by home cluster."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        sel = np.sort(rng.integers(0, len(centers), batch))
+        u = centers[sel] + sigma * rng.normal(
+            size=(batch, centers.shape[1])).astype(np.float32)
+        out.append((u / np.linalg.norm(u, axis=1, keepdims=True))
+                   .astype(np.float32))
+    return out
+
+
+def near_tie_rows(z: np.ndarray) -> np.ndarray:
+    """Rows whose top two float64 scaled running sums of Algorithm 2 are
+    within 4 f32 ulp: their t* depends on rounding."""
+    az = -np.sort(-np.abs(np.asarray(z, np.float64)), axis=-1)
+    zs = np.cumsum(az, axis=-1) / np.sqrt(np.arange(1, az.shape[-1] + 1))
+    top2 = -np.sort(-zs, axis=-1)[:, :2]
+    return top2[:, 0] - top2[:, 1] <= ULP * np.spacing(
+        top2[:, 0].astype(np.float32))
+
+
+def max_ulp(a, b) -> int:
+    a = np.ascontiguousarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.ascontiguousarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on "
+              "the GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.mapping import GamConfig, sparse_map
+    from repro_torch.core.retrieval import masked_topk, recovery_accuracy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gam_retrieve as gr
+    from repro_torch.kernels import gam_score as gs
+    from repro_torch.kernels import tess_project as tp
+    from repro_torch.retriever import RetrieverSpec, open_retriever
+
+    dev = torch.device("cuda")
+    report: dict = {"device": torch.cuda.get_device_name(0)}
+
+    # ---------------------------------------------------------- 1. build
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    for name in libs:
+        _build.library(name)
+    report["build_s"] = time.perf_counter() - t0
+    print(f"build: {len(libs)} kernels in {report['build_s']:.2f} s "
+          f"-> {_build.build_dir().relative_to(ROOT)}")
+
+    # ---------------------------------------------------------- data
+    t0 = time.perf_counter()
+    items, centers = clustered_catalog(N_ITEMS, K, N_CLUSTERS, SIGMA,
+                                       seed=N_ITEMS)
+    reqs = requests(centers, N_REQUESTS + 1, BATCH, SIGMA, seed=0)
+    cfg = GamConfig(k=K, scheme="parse_tree", threshold=THRESHOLD)
+    items_t = torch.as_tensor(items, device=dev)
+    tau, vals = sparse_map(items_t, cfg)
+    nz = (vals != 0).cpu().numpy()
+    bucket = int(np.bincount(tau.cpu().numpy()[nz], minlength=cfg.p).max())
+    spec = RetrieverSpec(cfg=cfg, backend="gam-device",
+                         min_overlap=MIN_OVERLAP, kappa=KAPPA, bucket=bucket)
+    print(f"data: {N_ITEMS} items, p={cfg.p}, bucket={bucket} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---------------------------------------------- 2. kernels vs plain
+    r0 = open_retriever(spec, items=items, device="cuda")
+    fail_unless(r0.stats()["n_spill"] == 0, "bucket sized to the longest "
+                "posting list must leave the spill list empty")
+    meta = r0._retrieve_meta
+    u0 = torch.as_tensor(reqs[1], device=dev)
+    q_tau, q_mask = r0._map(u0)
+    args = (u0, r0._items_dev, q_tau, q_mask, meta, KAPPA)
+    kw = dict(min_overlap=MIN_OVERLAP, bq=spec.bq)
+    got = gr.gam_retrieve(*args, **kw)
+    torch.cuda.synchronize()
+    want = gr.gam_retrieve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name in ("rows", "blk_counts", "skipped"):
+        fail_unless(torch.equal(getattr(got, name), getattr(want, name)),
+                    f"gam_retrieve {name} differ from the plain version")
+    gv, wv = got.vals.cpu().numpy(), want.vals.cpu().numpy()
+    fail_unless(max_ulp(gv, wv) <= ULP, "gam_retrieve scores beyond 4 ulp")
+    err_retrieve = float(np.abs(gv - wv).max())
+    print(f"gam_retrieve vs plain: rows/counts/skip exact, max ulp "
+          f"{max_ulp(gv, wv)}")
+
+    zt = torch.where(items_t.abs() >= THRESHOLD, items_t, 0.0).contiguous()
+    pat, a = tp.tess_project(zt)
+    torch.cuda.synchronize()
+    pat_p, a_p = tp.tess_project_plain(zt)
+    torch.cuda.synchronize()
+    diff = (pat != pat_p).any(dim=1).cpu().numpy()
+    rows_diff = np.nonzero(diff)[0]
+    excused = near_tie_rows(zt[rows_diff].cpu().numpy())
+    fail_unless(excused.all(), f"tess_project rows {rows_diff[~excused][:8]} "
+                "differ and are not near-ties")
+    same = torch.as_tensor(~diff, device=dev)
+    err_tess = float((a[same] - a_p[same]).abs().max())
+    fail_unless(err_tess == 0.0, "tess_project a differs on equal patterns")
+    print(f"tess_project vs plain: {int(diff.sum())} near-tie rows excused "
+          f"of {N_ITEMS}")
+
+    masks0 = r0.candidate_masks(reqs[1])
+    sc = gs.gam_score(u0, r0._items_dev, masks0)
+    torch.cuda.synchronize()
+    sc_p = gs.gam_score_plain(u0, r0._items_dev, masks0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sc, sc_p, rtol=1e-6, atol=1e-6)
+    err_score = float((sc - sc_p).abs().max())
+    ub, vb = u0.to(torch.bfloat16), r0._items_dev.to(torch.bfloat16)
+    torch.testing.assert_close(gs.gam_score(ub, vb, masks0),
+                               gs.gam_score_plain(ub, vb, masks0),
+                               rtol=1e-6, atol=1e-6)
+    torch.cuda.synchronize()
+    print(f"gam_score vs plain: f32 max abs err {err_score}, bf16 allclose")
+    del sc, sc_p, r0
+
+    # ------------------------------------------------------- 3. the slice
+    for fn in (gr.gam_retrieve, tp.tess_project, gs.gam_score):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    r = open_retriever(spec, items=items, device="cuda")
+    torch.cuda.synchronize()
+    report["build_catalog_s"] = time.perf_counter() - t0
+    lat, answers = [], []
+    for i, users in enumerate(reqs):
+        t0 = time.perf_counter()
+        res = r.query(users)
+        dt = time.perf_counter() - t0
+        if i:                                   # request 0 warms up
+            lat.append(dt * 1e3)
+            answers.append(res)
+    for users, res in zip(reqs[1:], answers):
+        fail_unless(res.ids.shape == (BATCH, KAPPA), "result shape")
+        fail_unless(np.isfinite(res.scores[res.ids >= 0]).all(),
+                    "non-finite scores")
+        masks = r.candidate_masks(users)
+        o_vals, o_ids = masked_topk(torch.as_tensor(users, device=dev),
+                                    r._items_dev, masks, KAPPA)
+        o_vals, o_ids = o_vals.cpu().numpy(), o_ids.cpu().numpy()
+        empty = o_vals <= gs.NEG / 2
+        fail_unless(np.array_equal(res.ids, np.where(empty, -1, o_ids)),
+                    "served ids differ from the dense oracle masked_topk")
+        fail_unless(max_ulp(np.where(empty, 0, res.scores),
+                            np.where(empty, 0, o_vals)) <= ULP,
+                    "served scores beyond 4 ulp of the dense oracle")
+        fail_unless(np.array_equal(res.n_scored,
+                                   masks.sum(dim=1).cpu().numpy()),
+                    "n_scored differs from the candidate masks")
+    torch.cuda.synchronize()
+    launches = {"gam_retrieve": gr.gam_retrieve.launches,
+                "tess_project": tp.tess_project.launches,
+                "gam_score": gs.gam_score.launches}
+    for name, n in launches.items():
+        fail_unless(n > 0, f"{name} never launched on the main path")
+    print(f"slice: launches {launches}")
+
+    brute = open_retriever(RetrieverSpec(cfg=cfg, backend="brute",
+                                         kappa=KAPPA), items=items,
+                           device="cuda")
+    recall, excused_rows = [], 0
+    for i, users in enumerate(reqs[1:]):
+        b = brute.query(users)
+        recall.append(recovery_accuracy(answers[i].ids, b.ids).mean())
+        if i < 2:
+            ex = r.query(users, exact=True)
+            bad = (ex.ids != b.ids).any(axis=1)
+            # ids may swap only where the two top-kappa score lists agree
+            # within 4 ulp of the unit dot-product scale (a near-tie)
+            close = np.abs(ex.scores - b.scores) <= ULP * np.spacing(
+                np.float32(1))
+            fail_unless(close.all(axis=1)[bad].all(),
+                        "exact=True differs from brute beyond a near-tie")
+            excused_rows += int(bad.sum())
+    exp = r.query(reqs[1], explain=True)
+    fail_unless(np.array_equal(exp.ids, answers[0].ids),
+                "explain changed the answer")
+    scored_tiles = 1.0 - float(np.mean(exp.explain["blocks_skipped"])) / \
+        exp.explain["n_blocks"]
+    discarded = float(np.mean([res.discarded_frac.mean() for res in answers]))
+    report.update(recall=float(np.mean(recall)), discarded_frac=discarded,
+                  scored_tile_frac=scored_tiles,
+                  p50_ms=float(np.percentile(lat, 50)),
+                  p99_ms=float(np.percentile(lat, 99)), latency_ms=lat,
+                  exact_vs_brute_near_tie_rows=excused_rows,
+                  launches=launches)
+    print(f"slice: recall@{KAPPA} vs brute {report['recall']:.4f}, "
+          f"discarded {discarded:.4f}, scored tiles {scored_tiles:.4f}, "
+          f"request p50 {report['p50_ms']:.3f} ms p99 {report['p99_ms']:.3f} "
+          f"ms, exact=True vs brute near-tie rows {excused_rows}")
+
+    snap = _build.build_dir() / "chip_smoke_snapshot.npz"
+    r.snapshot(str(snap))
+    again = open_retriever(spec, snapshot=str(snap), device="cuda").query(
+        reqs[1])
+    snap.unlink()
+    fail_unless(np.array_equal(again.ids, answers[0].ids)
+                and np.array_equal(again.scores, answers[0].scores),
+                "snapshot round trip changed the answers")
+    print("slice: snapshot round trip bit-identical")
+
+    # ---------------------------------------------------------- 4. timings
+    f = 4  # bytes of f32 / int32
+    words, bn = meta.words, meta.bn
+    cand_rows = int(masks0.any(dim=0).sum())
+    blocks = int((~got.skipped).any(dim=0).sum())
+    n_cand = int(got.blk_counts.sum())
+    nb, qb = meta.n_blocks, got.skipped.shape[0]
+    retrieve_bytes = (BATCH * K * (f + 1 + f) + nb * (words * f + 1)
+                      + blocks * bn * (words * f + 2) + cand_rows * K * f
+                      + BATCH * KAPPA * 2 * f + BATCH * nb * f + qb * nb)
+    score_bytes = BATCH * K * f + N_ITEMS * K * f + BATCH * N_ITEMS * (1 + f)
+    tess_bytes = N_ITEMS * K * (f + 1 + f)
+    rows = [
+        ("gam_retrieve", "src/repro/kernels/gam_retrieve.py:384",
+         lambda: gr.gam_retrieve(*args, **kw),
+         lambda: gr.gam_retrieve_plain(*args, **kw),
+         bound_ms(retrieve_bytes, 2 * K * n_cand), err_retrieve),
+        ("tess_project", "src/repro/kernels/tess_project.py:57",
+         lambda: tp.tess_project(zt), lambda: tp.tess_project_plain(zt),
+         bound_ms(tess_bytes, 3 * K * N_ITEMS), err_tess),
+        ("gam_score", "src/repro/kernels/gam_score.py:60",
+         lambda: gs.gam_score(u0, r._items_dev, masks0),
+         lambda: gs.gam_score_plain(u0, r._items_dev, masks0),
+         bound_ms(score_bytes, 2 * K * int(masks0.sum())), err_score),
+    ]
+    kernels = []
+    for name, replaces, kern, plain, (b_ms, b_by), err in rows:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": time_ms(torch, kern, 20),
+            "plain_ms": time_ms(torch, plain, 3), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
+    report["kernels"] = kernels
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    report["nvidia_smi"] = smi[0] if smi else "not available"
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(report["nvidia_smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

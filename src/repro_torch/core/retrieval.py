@@ -1,0 +1,60 @@
+"""The dense masked oracle and the paper's recovery metric, in PyTorch.
+
+Counterpart of the canonical half of ``repro.core.retrieval``:
+:func:`masked_topk` scores through the ``gam_score`` kernel (its plain
+version on the CPU) and writes out the (score desc, row asc) order itself,
+as ``lax.top_k`` gives it; :func:`recovery_accuracy` is the paper's §6
+metric.  The deprecated retriever shims are not ported.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ops import gam_score
+
+__all__ = ["masked_topk", "recovery_accuracy", "topk_desc"]
+
+
+def topk_desc(scores: torch.Tensor, kappa: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, N) scores -> top-kappa (values, column indices int64) under the
+    total order (score desc, column asc).
+
+    ``torch.topk`` picks the set; its order on ties is unspecified, so the
+    set is re-sorted explicitly, and rows whose kappa-th score is tied with
+    an entry outside the set fall back to a stable full sort."""
+    kk = min(int(kappa), scores.shape[1])
+    vals, idx = torch.topk(scores, kk, dim=1)
+    idx, perm = torch.sort(idx, dim=1)
+    vals = torch.gather(vals, 1, perm)
+    order = torch.argsort(-vals, dim=1, stable=True)
+    vals = torch.gather(vals, 1, order)
+    idx = torch.gather(idx, 1, order)
+    tied = torch.nonzero((scores >= vals[:, -1:]).sum(dim=1) > kk).flatten()
+    if tied.numel():
+        full = torch.argsort(-scores[tied], dim=1, stable=True)[:, :kk]
+        idx[tied] = full
+        vals[tied] = torch.gather(scores[tied], 1, full)
+    return vals, idx
+
+
+def masked_topk(users: torch.Tensor, items: torch.Tensor, masks: torch.Tensor,
+                kappa: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense masked top-kappa: exact scores where ``masks`` (Q, N) is set,
+    NEG elsewhere, then (score desc, row asc).  Returns (vals, ids int32)."""
+    vals, ids = topk_desc(gam_score(users, items, masks), kappa)
+    return vals, ids.to(torch.int32)
+
+
+def recovery_accuracy(retrieved_ids: np.ndarray,
+                      true_ids: np.ndarray) -> np.ndarray:
+    """Fraction of the true top-kappa recovered, per query (paper §6 metric);
+    ``-1`` pads on either side never count."""
+    ret = np.asarray(retrieved_ids)
+    true = np.asarray(true_ids)
+    hit = (true[:, :, None] == ret[:, None, :]) & (true >= 0)[:, :, None]
+    hit &= (ret >= 0)[:, None, :]
+    inter = hit.any(axis=-1).sum(axis=-1)
+    denom = np.maximum((true >= 0).sum(axis=-1), 1)
+    return inter / denom

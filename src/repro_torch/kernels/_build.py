@@ -1,0 +1,99 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` into a shared library with
+a plain C interface, all of them started together, and loaded with
+``ctypes``.  The output goes to ``build/repro_torch/<hash of the sources>/``
+at the root of the checkout, so an edited source builds anew and an
+unchanged one is reused.  The build happens at first use; nothing is built
+when a module is imported.  There is no fallback: a CUDA tensor whose
+library cannot be built makes the call raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build_dir", "build_all", "library", "check"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    """``build/repro_torch/<hash>`` under the checkout's root."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    root = Path(__file__).resolve().parents[3]
+    return root / "build" / "repro_torch" / h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built from source and need the CUDA toolkit")
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every missing kernel library in parallel -> name -> .so path."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {src.stem: out / f"lib{src.stem}.so" for src in _sources()}
+    todo = {name: so for name, so in libs.items() if not so.exists()}
+    if not todo:
+        return libs
+    nvcc = _nvcc()
+    procs = {}
+    for name, so in todo.items():
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp, so)
+    errors = []
+    for name, (proc, tmp, so) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name}: nvcc exited {proc.returncode}\n"
+                          f"{stdout}{stderr}")
+            continue
+        os.replace(tmp, so)
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return libs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        libs = build_all()
+        if name not in libs:
+            raise KeyError(f"no kernel source csrc/{name}.cu")
+        lib = ctypes.CDLL(str(libs[name]))
+        _loaded[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

@@ -1,0 +1,85 @@
+"""Dense masked MIPS scoring, the oracle of the fused retrieval kernel.
+
+``gam_score`` launches ``csrc/gam_score.cu`` on CUDA tensors;
+``gam_score_plain`` is its plain PyTorch version (CPU tensors, and the
+kernel's reference).  Both compute ``where(mask, u @ v.T, NEG)`` with the
+same arithmetic as the fused kernel: a fixed-order loop of f32 fused
+multiply-adds over k, which is also what the reference's dot computes.
+Counterpart of ``repro.kernels.gam_score``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["NEG", "dot_plain", "gam_score", "gam_score_plain"]
+
+NEG = -1e30
+
+# 65535 grid rows of 32-query tiles
+_MAX_Q = 65535 * 32
+
+
+def dot_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(Q, k) x (N, k) -> (Q, N) f32: a fused multiply-add per step over k,
+    in order from 0, as the kernels compute it.
+
+    torch has no f32 fma, so each step is taken in f64, where the product of
+    two f32 values is exact, and rounded back to f32.  That double rounding
+    can differ from a true fma by one ulp, in about one step of 2^29."""
+    u = u.to(torch.float64)
+    v = v.to(torch.float64)
+    out = torch.zeros((u.shape[0], v.shape[0]), dtype=torch.float32,
+                      device=u.device)
+    for d in range(u.shape[1]):
+        out = (out.to(torch.float64) + u[:, d, None] * v[None, :, d]).to(
+            torch.float32)
+    return out
+
+
+def gam_score_plain(u: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """u: (Q, k), v: (N, k), mask: (Q, N) -> masked scores (Q, N) f32."""
+    return torch.where(mask != 0, dot_plain(u, v), NEG)
+
+
+def gam_score(u: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on f32 or bf16 factors and a (Q, N) mask."""
+    for name, t in (("u", u), ("v", v), ("mask", mask)):
+        if t.device.type != "cuda" or t.device != u.device:
+            raise ValueError(f"gam_score kernel needs CUDA tensors on one "
+                             f"device, {name} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"gam_score: {name} must be contiguous")
+    if u.dtype not in (torch.float32, torch.bfloat16) or v.dtype != u.dtype:
+        raise ValueError(f"gam_score takes f32 or bf16 factors of one dtype, "
+                         f"got {u.dtype} and {v.dtype}")
+    if mask.dtype not in (torch.bool, torch.int8):
+        raise ValueError(f"gam_score mask must be bool or int8, got {mask.dtype}")
+    q, k = u.shape
+    n = v.shape[0]
+    if v.shape[1] != k or tuple(mask.shape) != (q, n):
+        raise ValueError(f"gam_score shapes u {tuple(u.shape)}, v "
+                         f"{tuple(v.shape)}, mask {tuple(mask.shape)}")
+    if q > _MAX_Q:
+        raise ValueError(f"gam_score takes at most {_MAX_Q} queries a call "
+                         f"(its grid's y extent), got {q}")
+    out = torch.empty((q, n), dtype=torch.float32, device=u.device)
+    lib = _build.library("gam_score")
+    fn = lib.gam_score_f32 if u.dtype == torch.float32 else lib.gam_score_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        _build.check(fn(u.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                        out.data_ptr(), q, n, k, stream), "gam_score")
+    gam_score.launches += 1
+    return out
+
+
+gam_score.launches = 0
