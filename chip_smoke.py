@@ -5,8 +5,8 @@
 
 Phases, each of which fails the run if it fails:
 
-1. Build: ``nvcc`` compiles the three CUDA kernels of ``kernels/csrc`` from
-   the checkout into ``build/repro_torch/<hash>/``.
+1. Build: ``nvcc`` compiles the CUDA sources of ``kernels/csrc`` from the
+   checkout into ``build/repro_torch/<hash>/``, one process per source.
 2. Kernels against their plain PyTorch versions at the slice's shapes:
    ``gam_retrieve`` (rows, counts and skip map exact, scores within 4 ulp),
    ``tess_project`` (exact except certified near-ties) and ``gam_score``.
@@ -20,6 +20,19 @@ Phases, each of which fails the run if it fails:
    ``exact=True`` must equal ``brute``; a snapshot must round-trip
    bit-identically.  Recovery accuracy against ``brute``, the discarded
    fraction, the scored-tile fraction and request latency are printed.
+3b. The compressed catalog: the same catalog under ``quantize="int8",
+   rerank_factor=4, compress_postings=True``, built on the card, answers the
+   same warm-up and 8 requests.  ``gam_retrieve_q`` must launch and the f32
+   ``gam_retrieve`` must not; the slab built on the card must equal the CPU
+   slab byte for byte; ``gam_retrieve_q`` must agree with its plain version
+   (pool rows, counts and skip map exact, scores within 4 ulp); candidates
+   (counts and skip map) must equal the f32 path's; on every query whose
+   pool holds the dense oracle's top kappa the served ids must equal the
+   oracle's and the scores be within 4 ulp of it, and every served score
+   within 4 ulp of its row's exact f32 score; a snapshot (varint postings,
+   int8 slab) must round-trip bit-identically.  Recall against ``brute``,
+   id agreement with the f32 path, pool-miss rows, factor bytes and request
+   latency are printed.
 4. Timings: each kernel's median time, its plain version's, and its bound
    on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32), printed as one ``kernels``
    JSON line; then the card's name and power limit; then the result line.
@@ -29,6 +42,7 @@ rest of the repository.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,6 +56,7 @@ ROOT = Path(__file__).resolve().parent
 N_ITEMS = 1 << 20
 K, N_CLUSTERS, SIGMA, THRESHOLD, MIN_OVERLAP, KAPPA = 10, 64, 0.05, 0.2, 2, 10
 N_REQUESTS, BATCH = 8, 256
+RERANK = 4                     # int8 re-rank pool = KAPPA * RERANK
 ULP = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM data sheet, outside the tensor cores
@@ -122,8 +137,11 @@ def main() -> int:
               "the GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint import load_arrays
+    from repro_torch.compress import quantize_int8
     from repro_torch.core.mapping import GamConfig, sparse_map
-    from repro_torch.core.retrieval import masked_topk, recovery_accuracy
+    from repro_torch.core.retrieval import (masked_topk, recovery_accuracy,
+                                            topk_desc)
     from repro_torch.kernels import _build
     from repro_torch.kernels import gam_retrieve as gr
     from repro_torch.kernels import gam_score as gs
@@ -294,6 +312,144 @@ def main() -> int:
                 "snapshot round trip changed the answers")
     print("slice: snapshot round trip bit-identical")
 
+    # ---------------------------------- 3b. the compressed catalog (int8)
+    qspec = dataclasses.replace(spec, quantize="int8", rerank_factor=RERANK,
+                                compress_postings=True)
+    pool = KAPPA * RERANK
+    for fn in (gr.gam_retrieve, gr.gam_retrieve_q, tp.tess_project,
+               gs.gam_score):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rq = open_retriever(qspec, items=items, device="cuda")
+    torch.cuda.synchronize()
+    report["build_catalog_int8_s"] = time.perf_counter() - t0
+    lat_q, answers_q = [], []
+    for i, users in enumerate(reqs):
+        t0 = time.perf_counter()
+        res = rq.query(users)
+        dt = time.perf_counter() - t0
+        if i:                                   # request 0 warms up
+            lat_q.append(dt * 1e3)
+            answers_q.append(res)
+    torch.cuda.synchronize()
+    launches_q = {"gam_retrieve_q": gr.gam_retrieve_q.launches,
+                  "gam_retrieve": gr.gam_retrieve.launches,
+                  "tess_project": tp.tess_project.launches}
+    fail_unless(launches_q["gam_retrieve_q"] > 0,
+                "gam_retrieve_q never launched on the compressed path")
+    fail_unless(launches_q["tess_project"] > 0,
+                "tess_project never launched on the compressed path")
+    fail_unless(launches_q["gam_retrieve"] == 0,
+                "the f32 gam_retrieve kernel ran on the compressed path")
+    print(f"int8: launches {launches_q}")
+
+    qmeta = rq._retrieve_meta
+    padded = torch.zeros((qmeta.n_pad, K), dtype=torch.float32)
+    padded[:N_ITEMS] = torch.from_numpy(rq.items)
+    slab_cpu, scales_cpu = quantize_int8(padded, block=qmeta.bn)
+    fail_unless(torch.equal(qmeta.factors_q.cpu(), slab_cpu),
+                "the int8 slab built on the card differs from the CPU slab")
+    fail_unless(torch.equal(qmeta.scales.cpu().view(torch.int32),
+                            scales_cpu.reshape(1, -1).view(torch.int32)),
+                "the scales built on the card differ from the CPU scales")
+    print(f"int8: slab ({qmeta.n_pad} x {K} int8, {qmeta.n_blocks} scales) "
+          "equals the CPU slab byte for byte")
+
+    uq_tau, uq_mask = rq._map(u0)
+    qargs = (u0, uq_tau, uq_mask, qmeta, pool)
+    got_q = gr.gam_retrieve_q(*qargs, **kw)
+    torch.cuda.synchronize()
+    want_q = gr.gam_retrieve_q_plain(*qargs, **kw)
+    torch.cuda.synchronize()
+    for name in ("rows", "blk_counts", "skipped"):
+        fail_unless(torch.equal(getattr(got_q, name), getattr(want_q, name)),
+                    f"gam_retrieve_q {name} differ from the plain version")
+    gv, wv = got_q.vals.cpu().numpy(), want_q.vals.cpu().numpy()
+    fail_unless(max_ulp(gv, wv) <= ULP, "gam_retrieve_q scores beyond 4 ulp")
+    err_retrieve_q = float(np.abs(gv - wv).max())
+    print(f"gam_retrieve_q vs plain: rows/counts/skip exact, max ulp "
+          f"{max_ulp(gv, wv)}")
+
+    wide = gr.GAM_RETRIEVE_MAX_KAPPA
+    pool_miss, wide_miss, agree, recall_q = 0, 0, [], []
+    for i, users in enumerate(reqs[1:]):
+        res, res32 = answers_q[i], answers[i]
+        u = torch.as_tensor(users, device=dev)
+        qt, qm = rq._map(u)
+        pres = gr.gam_retrieve_q(u, qt, qm, qmeta, pool, **kw)
+        fres = gr.gam_retrieve(u, r._items_dev, qt, qm, r._retrieve_meta,
+                               KAPPA, **kw)
+        fail_unless(torch.equal(pres.skipped, fres.skipped)
+                    and torch.equal(pres.blk_counts, fres.blk_counts)
+                    and np.array_equal(res.n_scored, res32.n_scored),
+                    "the int8 path's candidates differ from the f32 path's")
+        fail_unless(res.ids.shape == (BATCH, KAPPA), "int8 result shape")
+        # the dense oracle, as masked_topk computes it, keeping the scores
+        sc = gs.gam_score(u, rq._items_dev, rq.candidate_masks(users))
+        o_vals, o_ids = topk_desc(sc, KAPPA)
+        o_vals, o_ids = o_vals.cpu().numpy(), o_ids.cpu().numpy()
+        empty = o_vals <= gs.NEG / 2
+        o_ids = np.where(empty, -1, o_ids)
+
+        def covers(prow):
+            return ((o_ids[:, :, None] == prow[:, None, :]).any(-1)
+                    | empty).all(axis=1)
+
+        covered = covers(pres.rows.cpu().numpy())
+        pool_miss += int((~covered).sum())
+        # the widest pool the kernel takes, for sizing rerank_factor
+        wide_miss += int((~covers(gr.gam_retrieve_q(
+            u, qt, qm, qmeta, wide, **kw).rows.cpu().numpy())).sum())
+        fail_unless(np.array_equal(res.ids[covered], o_ids[covered]),
+                    "served ids differ from the dense oracle on a query "
+                    "whose pool covers the oracle's top kappa")
+        fail_unless(max_ulp(np.where(empty, 0, res.scores)[covered],
+                            np.where(empty, 0, o_vals)[covered]) <= ULP,
+                    "served scores beyond 4 ulp of the dense oracle")
+        served = res.ids >= 0
+        exact = torch.gather(sc, 1, torch.as_tensor(
+            np.maximum(res.ids, 0), device=dev)).cpu().numpy()
+        fail_unless(max_ulp(np.where(served, res.scores, 0),
+                            np.where(served, exact, 0)) <= ULP,
+                    "a served score is beyond 4 ulp of its exact f32 score")
+        agree.append(float((res.ids == res32.ids).all(axis=1).mean()))
+        recall_q.append(recovery_accuracy(res.ids, brute.query(users).ids)
+                        .mean())
+        del sc
+    factor_bytes = rq.stats()["factor_bytes"]
+    report.update(int8={
+        "recall": float(np.mean(recall_q)),
+        "ids_agree_f32": float(np.mean(agree)),
+        "pool_miss_rows": pool_miss,
+        f"pool_miss_rows_at_pool_{wide}": wide_miss,
+        "factor_bytes": factor_bytes,
+        "factor_bytes_f32": N_ITEMS * K * 4,
+        "p50_ms": float(np.percentile(lat_q, 50)),
+        "p99_ms": float(np.percentile(lat_q, 99)), "latency_ms": lat_q,
+        "launches": launches_q})
+    print(f"int8: recall@{KAPPA} vs brute {np.mean(recall_q):.4f}, ids agree "
+          f"with f32 on {np.mean(agree):.4f} of queries, pool-miss rows "
+          f"{pool_miss} of {N_REQUESTS * BATCH} ({wide_miss} at a pool of "
+          f"{wide}), factor bytes {factor_bytes} "
+          f"(f32 {N_ITEMS * K * 4}), request p50 "
+          f"{report['int8']['p50_ms']:.3f} ms p99 "
+          f"{report['int8']['p99_ms']:.3f} ms")
+
+    snap_q = _build.build_dir() / "chip_smoke_snapshot_int8.npz"
+    rq.snapshot(str(snap_q))
+    stored, _ = load_arrays(str(snap_q))
+    fail_unless("table_data" in stored and "factors_q" in stored
+                and "table" not in stored,
+                "the compressed snapshot must hold table_data and factors_q "
+                "and no dense table")
+    again_q = open_retriever(qspec, snapshot=str(snap_q),
+                             device="cuda").query(reqs[1])
+    snap_q.unlink()
+    fail_unless(np.array_equal(again_q.ids, answers_q[0].ids)
+                and np.array_equal(again_q.scores, answers_q[0].scores),
+                "compressed snapshot round trip changed the answers")
+    print("int8: compressed snapshot round trip bit-identical")
+
     # ---------------------------------------------------------- 4. timings
     f = 4  # bytes of f32 / int32
     words, bn = meta.words, meta.bn
@@ -301,9 +457,14 @@ def main() -> int:
     blocks = int((~got.skipped).any(dim=0).sum())
     n_cand = int(got.blk_counts.sum())
     nb, qb = meta.n_blocks, got.skipped.shape[0]
-    retrieve_bytes = (BATCH * K * (f + 1 + f) + nb * (words * f + 1)
-                      + blocks * bn * (words * f + 2) + cand_rows * K * f
-                      + BATCH * KAPPA * 2 * f + BATCH * nb * f + qb * nb)
+    shared_bytes = (BATCH * K * (f + 1 + f) + nb * (words * f + 1)
+                    + blocks * bn * (words * f + 2) + BATCH * nb * f + qb * nb)
+    retrieve_bytes = shared_bytes + cand_rows * K * f + BATCH * KAPPA * 2 * f
+    # int8: k slab bytes + one 4-byte scale per candidate row, pool outputs
+    retrieve_q_bytes = (shared_bytes + cand_rows * (K + f)
+                        + BATCH * pool * 2 * f)
+    n_cand_q = int(got_q.blk_counts.sum())
+    launches["gam_retrieve_q"] = launches_q["gam_retrieve_q"]
     score_bytes = BATCH * K * f + N_ITEMS * K * f + BATCH * N_ITEMS * (1 + f)
     tess_bytes = N_ITEMS * K * (f + 1 + f)
     rows = [
@@ -311,6 +472,10 @@ def main() -> int:
          lambda: gr.gam_retrieve(*args, **kw),
          lambda: gr.gam_retrieve_plain(*args, **kw),
          bound_ms(retrieve_bytes, 2 * K * n_cand), err_retrieve),
+        ("gam_retrieve_q", "src/repro/kernels/gam_retrieve.py:444",
+         lambda: gr.gam_retrieve_q(*qargs, **kw),
+         lambda: gr.gam_retrieve_q_plain(*qargs, **kw),
+         bound_ms(retrieve_q_bytes, 3 * K * n_cand_q), err_retrieve_q),
         ("tess_project", "src/repro/kernels/tess_project.py:57",
          lambda: tp.tess_project(zt), lambda: tp.tess_project_plain(zt),
          bound_ms(tess_bytes, 3 * K * N_ITEMS), err_tess),
@@ -321,14 +486,23 @@ def main() -> int:
     ]
     kernels = []
     for name, replaces, kern, plain, (b_ms, b_by), err in rows:
+        src = "gam_retrieve" if name == "gam_retrieve_q" else name
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": time_ms(torch, kern, 20),
             "plain_ms": time_ms(torch, plain, 3), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
     report["kernels"] = kernels
+    # the exact re-rank is torch code, not a kernel: its share of a request
+    report["int8"]["rerank_ms"] = time_ms(
+        torch, lambda: gr.rerank_pool(got_q, u0, rq._items_dev, KAPPA), 20)
+    # the int8 kernel's time against its pool width (kappa-list insertions)
+    report["int8"]["kernel_ms_by_pool"] = {
+        w: time_ms(torch, lambda w=w: gr.gam_retrieve_q(
+            u0, uq_tau, uq_mask, qmeta, w, **kw), 20)
+        for w in (KAPPA, pool, wide)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()

@@ -2,9 +2,11 @@
 
 Counterpart of the device half of ``repro.core.inverted_index``:
 ``build_segment`` (the numpy scatter build of one posting segment),
-``candidate_mask_from_table`` (the single definition of candidate semantics)
-and ``DeviceIndex`` (the table on a torch device).  The CPU CSR and the
-compressed index come with a later slice of the port.
+``candidate_mask_from_table`` (the single definition of candidate semantics),
+``DeviceIndex`` (the table on a torch device) and ``table_to_csr`` /
+``csr_to_table`` (the codec-facing flattening of a table, numpy as in the
+reference).  The CPU CSR and the compressed CPU index come with a later
+slice of the port.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["DeviceIndex", "build_segment", "candidate_mask_from_table"]
+__all__ = ["DeviceIndex", "build_segment", "candidate_mask_from_table",
+           "csr_to_table", "table_to_csr"]
 
 # table entries gathered per step of the batched mask (bounds temporaries)
 _MASK_CHUNK = 1 << 24
@@ -49,6 +52,34 @@ def build_segment(item_indices: np.ndarray, p: int, bucket: int,
     spill = np.unique(items_sorted[~fit]).astype(np.int32)
     counts = np.minimum(counts_full, bucket).astype(np.int32)
     return table, counts, spill
+
+
+def table_to_csr(table: np.ndarray, counts: np.ndarray
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Dense-bucket ``(p, bucket)`` table + per-slot counts -> CSR
+    ``(postings, offsets)`` of the real (non-pad) entries, ascending within
+    each slot (the builder's invariant)."""
+    table = np.asarray(table)
+    counts = np.asarray(counts, np.int64)
+    keep = np.arange(table.shape[1])[None, :] < counts[:, None]
+    postings = table[keep].astype(np.int64)
+    offsets = np.zeros(counts.size + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return postings, offsets
+
+
+def csr_to_table(postings: np.ndarray, offsets: np.ndarray, bucket: int,
+                 sentinel: int) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse of :func:`table_to_csr`: the ``(p, bucket)`` sentinel-padded
+    int32 table + int32 counts (lists must already be bucket-clipped)."""
+    offsets = np.asarray(offsets, np.int64)
+    counts = np.diff(offsets)
+    if counts.size and int(counts.max()) > bucket:
+        raise ValueError(f"slot length {int(counts.max())} > bucket {bucket}")
+    table = np.full((counts.size, bucket), sentinel, np.int32)
+    keep = np.arange(bucket)[None, :] < counts[:, None]
+    table[keep] = np.asarray(postings, np.int64)
+    return table, counts.astype(np.int32)
 
 
 def candidate_mask_from_table(table: torch.Tensor, spill: torch.Tensor,

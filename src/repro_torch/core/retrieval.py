@@ -11,7 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import gam_score
+# a module reference, not the function: ``kernels`` imports ``core`` while
+# ``core`` is still initialising when a kernel module is imported first
+import repro_torch.kernels.ops as _ops
 
 __all__ = ["masked_topk", "recovery_accuracy", "topk_desc"]
 
@@ -43,7 +45,7 @@ def masked_topk(users: torch.Tensor, items: torch.Tensor, masks: torch.Tensor,
                 kappa: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense masked top-kappa: exact scores where ``masks`` (Q, N) is set,
     NEG elsewhere, then (score desc, row asc).  Returns (vals, ids int32)."""
-    vals, ids = topk_desc(gam_score(users, items, masks), kappa)
+    vals, ids = topk_desc(_ops.gam_score(users, items, masks), kappa)
     return vals, ids.to(torch.int32)
 
 

@@ -1,7 +1,13 @@
 // Fused candidate-pruned top-kappa MIPS: the gam-device query hot loop.
 //
-// Replaces the Pallas kernel `_gam_retrieve` of src/repro/kernels/gam_retrieve.py
-// (pl.pallas_call at :384; `_kernel` :306, `_overlap` :263, `_merge_topk` :278).
+// Replaces two Pallas kernels of src/repro/kernels/gam_retrieve.py, which
+// share one body (`_kernel` :306, `_overlap` :263, `_merge_topk` :278):
+//  * `_gam_retrieve` (pl.pallas_call at :384), f32 factor rows, entry
+//    gam_retrieve_f32;
+//  * `_gam_retrieve_q` (pl.pallas_call at :444, `_kernel` with
+//    quantized=True), an int8 (n_pad, k) slab with one f32 scale per item
+//    block, decoded in the inner loop, entry gam_retrieve_i8.  Its kappa is
+//    the re-rank pool width; the exact f32 re-rank runs after it, in torch.
 // For each query q and item j it computes
 //     cand = (popcount(q_bits & item_bits[j]) >= min_overlap | spill[j]) & alive[j]
 // and, for candidates only, the f32 score u[q] . v[j]; it keeps the top kappa
@@ -9,13 +15,14 @@
 // candidate counts, and the (query tile, item block) skip map of the
 // block-union prepass.  Empty slots come back as (NEG, -1).
 //
-// Three kernels, launched in order on one stream by gam_retrieve_f32:
+// Three kernels, launched in order on one stream by either entry:
 //  1. skip_kernel: one thread per (query tile, item block) pops the query
 //     bits against the block's union pattern; a tile whose bound is below
 //     min_overlap for every query in it and holds no spill row is skipped.
 //     The tile height is the reference's effective_bq, so the skip map is the
 //     one `explain` reports.
-//  2. retrieve_kernel: on the TPU the item axis was a sequential grid axis
+//  2. retrieve_kernel<T>, templated on the factor row type (float or
+//     int8_t): on the TPU the item axis was a sequential grid axis
 //     carrying a running top-kappa in VMEM; Hopper runs blocks in parallel in
 //     no order, so the item axis is cut into `splits` ranges of whole item
 //     blocks and the grid is (query group of 8 x split), sized to fill the
@@ -23,10 +30,15 @@
 //     items of each unskipped block 32 at a time, reading the transposed
 //     bitsets along n so the loads coalesce, popcount with __popc, and score
 //     candidates with a fixed-order loop of f32 fused multiply-adds over k
-//     (__fmaf_rn), the arithmetic of the reference's dot.  The warp's
-//     kappa-list lives in shared memory; a candidate is inserted only when it
-//     beats the current kappa-th entry, one lane at a time under a ballot, so
-//     the list stays sorted.  The count of each
+//     (__fmaf_rn), the arithmetic of the reference's dot.  An int8 element
+//     is decoded as __fmul_rn((float)q, scale), the reference's
+//     `v.astype(f32) * sc` (:335): the explicit round-to-nearest multiply
+//     keeps nvcc from contracting the decode into the FMA, which would skip
+//     that rounding and part from the plain version.  A warp loads its
+//     block's scale once per unskipped block (splits are whole blocks).
+//     The warp's kappa-list lives in shared memory; a candidate is inserted
+//     only when it beats the current kappa-th entry, one lane at a time under
+//     a ballot, so the list stays sorted.  The count of each
 //     (query, block) is written by the one warp that owns it, with no atomics.
 //  3. merge_kernel: one block per query merges the per-split sorted lists.
 //     An entry's final position is its own index plus, for every other split,
@@ -35,10 +47,13 @@
 //
 // Bound on an H100: bytes.  A query batch streams the pattern bitsets and the
 // spill/alive flags of every unskipped block, and the factor rows of the
-// candidates; the popcounts and the 2k flops per candidate are far below the
-// integer and f32 rates.  Skipped tiles cost one flag read per warp.  Making
-// the block reuse the bitsets across its 8 queries from shared memory, and
-// using wider loads, is later work.
+// candidates (4k bytes a row in f32; k bytes plus a 4-byte scale in int8);
+// the popcounts and the 2k (f32) or 3k (int8: decode, multiply, add) flops
+// per candidate are far below the integer and f32 rates.  Skipped tiles cost
+// one flag read per warp.  The int8 slab cuts the row bytes 4x; its rows are
+// k bytes, unaligned, and are read a byte at a time.  Making the block reuse
+// the bitsets across its 8 queries from shared memory, and using wider
+// loads, is later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,9 +87,17 @@ __global__ void skip_kernel(const int32_t* __restrict__ qbits,
   skip[idx] = possible ? 0 : 1;
 }
 
+__device__ __forceinline__ float decode(float v, float) { return v; }
+
+__device__ __forceinline__ float decode(int8_t v, float scale) {
+  return __fmul_rn((float)v, scale);
+}
+
+template <typename T>
 __global__ void retrieve_kernel(
-    const float* __restrict__ users, const float* __restrict__ factors,
-    const int32_t* __restrict__ qbits, const int32_t* __restrict__ item_bits_t,
+    const float* __restrict__ users, const T* __restrict__ factors,
+    const float* __restrict__ scales, const int32_t* __restrict__ qbits,
+    const int32_t* __restrict__ item_bits_t,
     const int8_t* __restrict__ spill8, const int8_t* __restrict__ alive8,
     const uint8_t* __restrict__ skip, float* __restrict__ part_s,
     int32_t* __restrict__ part_r, int32_t* __restrict__ counts, int q, int k,
@@ -104,6 +127,7 @@ __global__ void retrieve_kernel(
   for (int b = b0; b < b1; ++b) {
     int cnt = 0;
     if (!skip_row[b]) {
+      const float scale = scales != nullptr ? __ldg(scales + b) : 1.0f;
       const int64_t j0 = (int64_t)b * bn;
       for (int jj = 0; jj < bn; jj += 32) {
         const int64_t j = j0 + jj + lane;
@@ -118,9 +142,11 @@ __global__ void retrieve_kernel(
         }
         if (cand) {
           ++cnt;
-          const float* vr = factors + j * k;
+          const T* vr = factors + j * k;
           s = 0.0f;
-          for (int d = 0; d < k; ++d) s = __fmaf_rn(u[d], vr[d], s);
+          for (int d = 0; d < k; ++d) {
+            s = __fmaf_rn(u[d], decode(vr[d], scale), s);
+          }
         }
         const int row = (int)j;
         bool want = cand && beats(s, row, ts, tr);
@@ -203,13 +229,15 @@ __global__ void merge_kernel(const float* __restrict__ part_s,
   }
 }
 
-extern "C" int gam_retrieve_f32(
-    const void* users, const void* factors, const void* qbits,
-    const void* item_bits_t, const void* block_union, const void* block_spill,
-    const void* spill8, const void* alive8, void* skip, void* counts,
-    void* part_s, void* part_r, void* vals, void* rows, int q, int k,
-    int words, int64_t n_pad, int bn, int nb, int bq, int qblocks, int kappa,
-    int min_overlap, int splits, int blocks_per_split, void* stream) {
+template <typename T>
+static int launch(const void* users, const void* factors, const void* scales,
+                  const void* qbits, const void* item_bits_t,
+                  const void* block_union, const void* block_spill,
+                  const void* spill8, const void* alive8, void* skip,
+                  void* counts, void* part_s, void* part_r, void* vals,
+                  void* rows, int q, int k, int words, int64_t n_pad, int bn,
+                  int nb, int bq, int qblocks, int kappa, int min_overlap,
+                  int splits, int blocks_per_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int64_t tiles = (int64_t)qblocks * nb;
   skip_kernel<<<(unsigned)((tiles + 255) / 256), 256, 0, st>>>(
@@ -220,16 +248,47 @@ extern "C" int gam_retrieve_f32(
   if (err != cudaSuccess) return (int)err;
   dim3 grid((q + WARPS - 1) / WARPS, splits);
   size_t smem = (size_t)WARPS * (k + 2 * kappa) * sizeof(float);
-  retrieve_kernel<<<grid, WARPS * 32, smem, st>>>(
-      (const float*)users, (const float*)factors, (const int32_t*)qbits,
-      (const int32_t*)item_bits_t, (const int8_t*)spill8,
-      (const int8_t*)alive8, (const uint8_t*)skip, (float*)part_s,
-      (int32_t*)part_r, (int32_t*)counts, q, k, words, n_pad, bn, nb, bq,
-      kappa, min_overlap, blocks_per_split);
+  retrieve_kernel<T><<<grid, WARPS * 32, smem, st>>>(
+      (const float*)users, (const T*)factors, (const float*)scales,
+      (const int32_t*)qbits, (const int32_t*)item_bits_t,
+      (const int8_t*)spill8, (const int8_t*)alive8, (const uint8_t*)skip,
+      (float*)part_s, (int32_t*)part_r, (int32_t*)counts, q, k, words, n_pad,
+      bn, nb, bq, kappa, min_overlap, blocks_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<q, 128, 0, st>>>((const float*)part_s,
                                   (const int32_t*)part_r, (float*)vals,
                                   (int32_t*)rows, q, splits, kappa);
   return (int)cudaGetLastError();
+}
+
+// f32 factor rows (n_rows, k); no scales.
+extern "C" int gam_retrieve_f32(
+    const void* users, const void* factors, const void* qbits,
+    const void* item_bits_t, const void* block_union, const void* block_spill,
+    const void* spill8, const void* alive8, void* skip, void* counts,
+    void* part_s, void* part_r, void* vals, void* rows, int q, int k,
+    int words, int64_t n_pad, int bn, int nb, int bq, int qblocks, int kappa,
+    int min_overlap, int splits, int blocks_per_split, void* stream) {
+  return launch<float>(users, factors, nullptr, qbits, item_bits_t,
+                       block_union, block_spill, spill8, alive8, skip, counts,
+                       part_s, part_r, vals, rows, q, k, words, n_pad, bn, nb,
+                       bq, qblocks, kappa, min_overlap, splits,
+                       blocks_per_split, stream);
+}
+
+// int8 slab (n_pad, k) and its (n_blocks,) f32 scales; kappa is the pool.
+extern "C" int gam_retrieve_i8(
+    const void* users, const void* factors_q, const void* scales,
+    const void* qbits, const void* item_bits_t, const void* block_union,
+    const void* block_spill, const void* spill8, const void* alive8,
+    void* skip, void* counts, void* part_s, void* part_r, void* vals,
+    void* rows, int q, int k, int words, int64_t n_pad, int bn, int nb,
+    int bq, int qblocks, int kappa, int min_overlap, int splits,
+    int blocks_per_split, void* stream) {
+  return launch<int8_t>(users, factors_q, scales, qbits, item_bits_t,
+                        block_union, block_spill, spill8, alive8, skip,
+                        counts, part_s, part_r, vals, rows, q, k, words, n_pad,
+                        bn, nb, bq, qblocks, kappa, min_overlap, splits,
+                        blocks_per_split, stream);
 }

@@ -1,16 +1,23 @@
-"""Fused candidate-pruned top-kappa retrieval: host side, plain version and
-the wrapper of the CUDA kernel ``csrc/gam_retrieve.cu``.
+"""Fused candidate-pruned top-kappa retrieval: host side, plain versions and
+the wrappers of the CUDA kernel ``csrc/gam_retrieve.cu``.
 
-Counterpart of ``repro.kernels.gam_retrieve`` (f32 path).  Pattern bitsets
-are held as ``int32`` tensors with the bits of the reference's ``uint32``
-words: torch has no shifts or popcount on ``uint32`` on the CPU, and the bit
-pattern is all the kernel reads.  Snapshots convert back to ``uint32``.
+Counterpart of ``repro.kernels.gam_retrieve``, f32 and int8 paths.  Pattern
+bitsets are held as ``int32`` tensors with the bits of the reference's
+``uint32`` words: torch has no shifts or popcount on ``uint32`` on the CPU,
+and the bit pattern is all the kernel reads.  Snapshots convert back to ``uint32``.
 
 ``gam_retrieve`` launches the kernel on CUDA tensors;
 ``gam_retrieve_plain`` is its plain PyTorch version, which walks the item
 axis in chunks so a catalog of millions of rows fits in memory.  Both
 realise the total order (score desc, row asc) over candidates with the same
 f32 arithmetic, so they agree bit for bit.
+
+The int8 path (``meta.quantize == "int8"``, slab attached by
+:func:`quantize_meta`): ``gam_retrieve_q`` launches the kernel's int8 entry
+and ``gam_retrieve_q_plain`` is its plain version; both score on the slab
+decoded as ``float(q) * scale`` per block and keep a pool of
+``kappa * rerank_factor`` rows, which :func:`rerank_pool` re-scores against
+the exact f32 rows.
 """
 from __future__ import annotations
 
@@ -21,14 +28,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.compress.quantize import quantize_int8
 from repro_torch.kernels import _build
-from repro_torch.kernels.gam_score import NEG, dot_plain
+from repro_torch.kernels.gam_score import NEG, dot_plain, fma_dot
 
 __all__ = ["GAM_RETRIEVE_MAX_K", "GAM_RETRIEVE_MAX_KAPPA", "GamRetrieveResult",
            "ROW_CAPACITY", "RetrievalMeta", "RowCapacityError",
            "TOPK_EMPTY_ROW", "build_retrieval_meta", "effective_bq",
            "expand_tile_skips", "export_topk", "gam_retrieve",
-           "gam_retrieve_plain", "pack_patterns", "popcount32"]
+           "gam_retrieve_plain", "gam_retrieve_q", "gam_retrieve_q_plain",
+           "pack_patterns", "popcount32", "quantize_meta", "rerank_pool"]
 
 #: Hard structural-row ceiling (2^30): the reference kernel's non-candidate
 #: sentinel row; kept so both packages refuse the same catalogs.
@@ -133,18 +142,43 @@ class RetrievalMeta:
     bn: int                     # item-block width
     n_rows: int                 # structural rows of the factor array served
     n_pad: int                  # n_rows rounded up to a multiple of bn
+    quantize: str = "none"                  # "none" | "int8"
+    factors_q: torch.Tensor | None = None   # (n_pad, k) int8 quantized factors
+    scales: torch.Tensor | None = None      # (1, n_blocks) f32 dequant scales
 
     @property
     def n_blocks(self) -> int:
         return self.n_pad // self.bn
 
 
+def quantize_meta(meta: RetrievalMeta, factors) -> RetrievalMeta:
+    """Attach an int8 factor slab + per-block scales to ``meta``, on its
+    device.  ``factors``: (m, k) f32 with m <= n_pad; rows past m quantize
+    as zeros (structural pads).  One scale per ``bn``-row kernel block."""
+    dev = meta.item_bits_t.device
+    f = torch.as_tensor(factors, dtype=torch.float32, device=dev)
+    if f.dim() != 2 or f.shape[0] > meta.n_pad:
+        raise ValueError(f"factors shape {tuple(f.shape)} does not fit "
+                         f"n_pad={meta.n_pad}")
+    fp = torch.zeros((meta.n_pad, f.shape[1]), dtype=torch.float32,
+                     device=dev)
+    fp[:f.shape[0]] = f
+    q, scales = quantize_int8(fp, block=meta.bn)
+    return dataclasses.replace(meta, quantize="int8", factors_q=q,
+                               scales=scales.reshape(1, -1))
+
+
 def build_retrieval_meta(tau, mask, p: int, *, n_rows: int | None = None,
-                         spill_rows=None, bn: int = 256,
+                         spill_rows=None, bn: int = 256, factors=None,
+                         quantize: str = "none",
                          device: str | torch.device = "cpu") -> RetrievalMeta:
     """Build the kernel's block metadata for ``n_rows`` structural rows on
     ``device``; ``tau``/``mask`` are the (n, k) patterns of rows 0..n-1 and
-    ``spill_rows`` the rows that are unconditional candidates."""
+    ``spill_rows`` the rows that are unconditional candidates.
+    ``quantize="int8"`` also quantizes ``factors`` (required then) into the
+    slab the int8 kernel decodes."""
+    if quantize not in ("none", "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
     tau = torch.as_tensor(tau, device=device)
     mask = torch.as_tensor(mask, device=device).to(torch.bool)
     n = tau.shape[0]
@@ -164,12 +198,17 @@ def build_retrieval_meta(tau, mask, p: int, *, n_rows: int | None = None,
     if spill_rows is not None:
         sr = torch.as_tensor(np.asarray(spill_rows, np.int64), device=device)
         spill[sr] = True
-    return RetrievalMeta(
+    meta = RetrievalMeta(
         item_bits_t=bits.T.contiguous(),
         block_union=_or_blocks(bits.view(n_blocks, bn, words)).contiguous(),
         block_spill=spill.view(n_blocks, bn).any(dim=1),
         spill8=spill.to(torch.int8)[None, :],
         p=int(p), words=words, bn=bn, n_rows=n_rows, n_pad=n_pad)
+    if quantize == "int8":
+        if factors is None:
+            raise ValueError("quantize='int8' requires the factor slab")
+        meta = quantize_meta(meta, factors)
+    return meta
 
 
 # ----------------------------------------------------------------- compute
@@ -202,10 +241,11 @@ def _alive8(alive, meta: RetrievalMeta, device) -> torch.Tensor:
     return out
 
 
-def gam_retrieve_plain(users, factors, q_tau, q_mask, meta: RetrievalMeta,
-                       kappa: int, *, min_overlap: int = 1, alive=None,
-                       bq: int = 32) -> GamRetrieveResult:
-    """Plain PyTorch version of :func:`gam_retrieve`, on any device."""
+def _plain_walk(users, rows_f32, q_tau, q_mask, meta: RetrievalMeta,
+                kappa: int, min_overlap: int, alive, bq: int
+                ) -> GamRetrieveResult:
+    """The plain item walk; ``rows_f32(lo, hi)`` gives the f32 factor rows
+    lo..hi-1 that are scored."""
     q = users.shape[0]
     dev = users.device
     bq = effective_bq(q, bq)
@@ -230,7 +270,7 @@ def gam_retrieve_plain(users, factors, q_tau, q_mask, meta: RetrievalMeta,
         scores = torch.full((q, hi - lo), NEG, dtype=torch.float32, device=dev)
         top = min(hi, meta.n_rows)
         if top > lo:
-            scores[:, :top - lo] = dot_plain(users, factors[lo:top])
+            scores[:, :top - lo] = dot_plain(users, rows_f32(lo, top))
         scores = torch.where(cand, scores, NEG)
         # accumulator first, then the chunk in row order: a stable sort on
         # score desc realises (score desc, row asc)
@@ -244,6 +284,57 @@ def gam_retrieve_plain(users, factors, q_tau, q_mask, meta: RetrievalMeta,
     return GamRetrieveResult(vals, rows, counts, skip)
 
 
+def gam_retrieve_plain(users, factors, q_tau, q_mask, meta: RetrievalMeta,
+                       kappa: int, *, min_overlap: int = 1, alive=None,
+                       bq: int = 32) -> GamRetrieveResult:
+    """Plain PyTorch version of :func:`gam_retrieve`, on any device."""
+    return _plain_walk(users, lambda lo, hi: factors[lo:hi], q_tau, q_mask,
+                       meta, kappa, min_overlap, alive, bq)
+
+
+def gam_retrieve_q_plain(users, q_tau, q_mask, meta: RetrievalMeta,
+                         pool: int, *, min_overlap: int = 1, alive=None,
+                         bq: int = 32) -> GamRetrieveResult:
+    """Plain PyTorch version of :func:`gam_retrieve_q`, on any device: the
+    f32 walk over the slab decoded as ``float(q) * scale`` of its block (the
+    reference's in-kernel decode), keeping the top ``pool``."""
+    if meta.quantize != "int8":
+        raise ValueError("gam_retrieve_q needs a meta with an int8 slab "
+                         "(quantize_meta)")
+    scale = meta.scales[0]
+
+    def decode(lo, hi):
+        blocks = torch.arange(lo, hi, device=scale.device) // meta.bn
+        return meta.factors_q[lo:hi].float() * scale[blocks][:, None]
+
+    return _plain_walk(users, decode, q_tau, q_mask, meta, pool, min_overlap,
+                       alive, bq)
+
+
+def rerank_pool(pool_res: GamRetrieveResult, users, factors,
+                kappa: int) -> GamRetrieveResult:
+    """Exact f32 re-rank of a quantized-score candidate pool, on the
+    tensors' device.
+
+    Each valid pool row is re-scored against its exact f32 factor row with
+    the kernels' arithmetic (:func:`fma_dot`, so served scores equal the
+    dense oracle's), then the top ``kappa`` are taken under (score desc, row
+    asc), empty slots keyed :data:`TOPK_EMPTY_ROW` and returned as
+    ``(NEG, -1)``.  Counts and skips carry over from the pool."""
+    rows_p, vals_p = pool_res.rows, pool_res.vals
+    valid = (rows_p >= 0) & (vals_p > NEG / 2)
+    idx = torch.where(valid, rows_p, 0).long()
+    ex = torch.where(valid, fma_dot(users[:, None, :], factors[idx]), NEG)
+    key = torch.where(valid, rows_p.long(), int(TOPK_EMPTY_ROW))
+    by_row = torch.argsort(key, dim=1, stable=True)
+    ex, key = torch.gather(ex, 1, by_row), torch.gather(key, 1, by_row)
+    order = torch.argsort(-ex, dim=1, stable=True)[:, :kappa]
+    vals, key = torch.gather(ex, 1, order), torch.gather(key, 1, order)
+    rows = torch.where(key == int(TOPK_EMPTY_ROW), -1, key).to(torch.int32)
+    return GamRetrieveResult(vals, rows, pool_res.blk_counts,
+                             pool_res.skipped)
+
+
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"gam_retrieve: {name} is on {t.device}, not {device}")
@@ -253,28 +344,20 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-def gam_retrieve(users, factors, q_tau, q_mask, meta: RetrievalMeta,
-                 kappa: int, *, min_overlap: int = 1, alive=None,
-                 bq: int = 32) -> GamRetrieveResult:
-    """Launch the CUDA kernel: fused candidate-pruned top-kappa over
-    ``meta.n_rows`` items.
-
-    ``users``: (Q, k) f32; ``factors``: (n_rows, k) f32; ``q_tau``/``q_mask``:
-    (Q, k) int32 / bool mapped query patterns; ``alive``: optional (n_rows,)
-    bool; ``min_overlap=0`` makes every alive row a candidate (exact path)."""
+def _check_common(users, q_tau, q_mask, meta: RetrievalMeta, kappa: int,
+                  what: str) -> None:
     dev = users.device
     if dev.type != "cuda":
-        raise ValueError(f"gam_retrieve kernel needs CUDA tensors, got {dev}")
+        raise ValueError(f"{what} kernel needs CUDA tensors, got {dev}")
     q, k = users.shape
-    kappa = int(kappa)
     if not 1 <= kappa <= GAM_RETRIEVE_MAX_KAPPA:
-        raise ValueError(f"gam_retrieve supports 1 <= kappa <= "
-                         f"{GAM_RETRIEVE_MAX_KAPPA}, got {kappa}")
+        raise ValueError(f"{what} supports 1 <= kappa <= "
+                         f"{GAM_RETRIEVE_MAX_KAPPA} (GAM_RETRIEVE_MAX_KAPPA), "
+                         f"got {kappa}")
     if not 1 <= k <= GAM_RETRIEVE_MAX_K or q < 1:
-        raise ValueError(f"gam_retrieve supports 1 <= k <= "
+        raise ValueError(f"{what} supports 1 <= k <= "
                          f"{GAM_RETRIEVE_MAX_K} and Q >= 1, got {(q, k)}")
     _check("users", users, torch.float32, (q, k), dev)
-    _check("factors", factors, torch.float32, (meta.n_rows, k), dev)
     _check("q_tau", q_tau, torch.int32, (q, k), dev)
     _check("q_mask", q_mask, torch.bool, (q, k), dev)
     nb = meta.n_blocks
@@ -283,6 +366,16 @@ def gam_retrieve(users, factors, q_tau, q_mask, meta: RetrievalMeta,
     _check("block_union", meta.block_union, torch.int32, (nb, meta.words), dev)
     _check("block_spill", meta.block_spill, torch.bool, (nb,), dev)
     _check("spill8", meta.spill8, torch.int8, (1, meta.n_pad), dev)
+
+
+def _launch(entry: str, users, rows: list, q_tau, q_mask,
+            meta: RetrievalMeta, kappa: int, min_overlap: int, alive,
+            bq: int) -> GamRetrieveResult:
+    """Allocate the outputs and launch ``entry`` of the library; ``rows``
+    are the factor tensors the entry reads (f32 rows, or slab + scales)."""
+    dev = users.device
+    q, k = users.shape
+    nb = meta.n_blocks
     bq = effective_bq(q, bq)
     qblocks = -(-q // bq)
     q_bits = pack_patterns(q_tau, q_mask, meta.p)
@@ -296,23 +389,66 @@ def gam_retrieve(users, factors, q_tau, q_mask, meta: RetrievalMeta,
     part_s = torch.empty((splits, q, kappa), dtype=torch.float32, device=dev)
     part_r = torch.empty((splits, q, kappa), dtype=torch.int32, device=dev)
     vals = torch.empty((q, kappa), dtype=torch.float32, device=dev)
-    rows = torch.empty((q, kappa), dtype=torch.int32, device=dev)
-    fn = _build.library("gam_retrieve").gam_retrieve_f32
-    fn.argtypes = ([ctypes.c_void_p] * 14
+    out_rows = torch.empty((q, kappa), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in (
+        users, *rows, q_bits, meta.item_bits_t, meta.block_union,
+        meta.block_spill, meta.spill8, alive8, skip, counts, part_s, part_r,
+        vals, out_rows)]
+    fn = getattr(_build.library("gam_retrieve"), entry)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64]
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    ptrs = [t.data_ptr() for t in (
-        users, factors, q_bits, meta.item_bits_t, meta.block_union,
-        meta.block_spill, meta.spill8, alive8, skip, counts, part_s, part_r,
-        vals, rows)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(fn(*ptrs, q, k, meta.words, meta.n_pad, meta.bn, nb, bq,
                         qblocks, kappa, int(min_overlap), splits, per_split,
-                        stream), "gam_retrieve")
+                        stream), entry)
+    return GamRetrieveResult(vals, out_rows, counts, skip)
+
+
+def gam_retrieve(users, factors, q_tau, q_mask, meta: RetrievalMeta,
+                 kappa: int, *, min_overlap: int = 1, alive=None,
+                 bq: int = 32) -> GamRetrieveResult:
+    """Launch the CUDA kernel: fused candidate-pruned top-kappa over
+    ``meta.n_rows`` items.
+
+    ``users``: (Q, k) f32; ``factors``: (n_rows, k) f32; ``q_tau``/``q_mask``:
+    (Q, k) int32 / bool mapped query patterns; ``alive``: optional (n_rows,)
+    bool; ``min_overlap=0`` makes every alive row a candidate (exact path)."""
+    kappa = int(kappa)
+    _check_common(users, q_tau, q_mask, meta, kappa, "gam_retrieve")
+    _check("factors", factors, torch.float32, (meta.n_rows, users.shape[1]),
+           users.device)
+    res = _launch("gam_retrieve_f32", users, [factors], q_tau, q_mask, meta,
+                  kappa, min_overlap, alive, bq)
     gam_retrieve.launches += 1
-    return GamRetrieveResult(vals, rows, counts, skip)
+    return res
 
 
 gam_retrieve.launches = 0
+
+
+def gam_retrieve_q(users, q_tau, q_mask, meta: RetrievalMeta, pool: int, *,
+                   min_overlap: int = 1, alive=None,
+                   bq: int = 32) -> GamRetrieveResult:
+    """Launch the CUDA kernel's int8 entry: as :func:`gam_retrieve`, scoring
+    on ``meta.factors_q`` (n_pad, k) int8 decoded with ``meta.scales``
+    (1, n_blocks) f32, keeping the top ``pool`` (at most
+    :data:`GAM_RETRIEVE_MAX_KAPPA`) for :func:`rerank_pool`."""
+    pool = int(pool)
+    _check_common(users, q_tau, q_mask, meta, pool, "gam_retrieve_q")
+    if meta.quantize != "int8":
+        raise ValueError("gam_retrieve_q needs a meta with an int8 slab "
+                         "(quantize_meta)")
+    dev = users.device
+    _check("factors_q", meta.factors_q, torch.int8,
+           (meta.n_pad, users.shape[1]), dev)
+    _check("scales", meta.scales, torch.float32, (1, meta.n_blocks), dev)
+    res = _launch("gam_retrieve_i8", users, [meta.factors_q, meta.scales],
+                  q_tau, q_mask, meta, pool, min_overlap, alive, bq)
+    gam_retrieve_q.launches += 1
+    return res
+
+
+gam_retrieve_q.launches = 0

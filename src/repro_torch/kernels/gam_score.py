@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["NEG", "dot_plain", "gam_score", "gam_score_plain"]
+__all__ = ["NEG", "dot_plain", "fma_dot", "gam_score", "gam_score_plain"]
 
 NEG = -1e30
 
@@ -23,21 +23,26 @@ NEG = -1e30
 _MAX_Q = 65535 * 32
 
 
-def dot_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(Q, k) x (N, k) -> (Q, N) f32: a fused multiply-add per step over k,
-    in order from 0, as the kernels compute it.
+def fma_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., k) x (..., k), broadcast -> (...) f32: a fused multiply-add per
+    step over k, in order from 0, as the kernels compute it.
 
     torch has no f32 fma, so each step is taken in f64, where the product of
     two f32 values is exact, and rounded back to f32.  That double rounding
     can differ from a true fma by one ulp, in about one step of 2^29."""
     u = u.to(torch.float64)
     v = v.to(torch.float64)
-    out = torch.zeros((u.shape[0], v.shape[0]), dtype=torch.float32,
-                      device=u.device)
-    for d in range(u.shape[1]):
-        out = (out.to(torch.float64) + u[:, d, None] * v[None, :, d]).to(
+    shape = torch.broadcast_shapes(u.shape[:-1], v.shape[:-1])
+    out = torch.zeros(shape, dtype=torch.float32, device=u.device)
+    for d in range(u.shape[-1]):
+        out = (out.to(torch.float64) + u[..., d] * v[..., d]).to(
             torch.float32)
     return out
+
+
+def dot_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(Q, k) x (N, k) -> (Q, N) f32 by :func:`fma_dot`."""
+    return fma_dot(u[:, None, :], v[None, :, :])
 
 
 def gam_score_plain(u: torch.Tensor, v: torch.Tensor,

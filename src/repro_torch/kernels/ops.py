@@ -24,12 +24,30 @@ def gam_score(u, v, mask):
     return _gs.gam_score(u, v, mask)
 
 
-def gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, **kw):
-    """Fused candidate-pruned top-kappa (the serving hot loop)."""
+def gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, *,
+                 rerank_factor: int = 4, **kw):
+    """Fused candidate-pruned top-kappa (the serving hot loop).
+
+    With ``meta.quantize == "int8"`` the int8 kernel keeps a pool of
+    ``kappa * rerank_factor`` rows (at least kappa, at most n_pad), which is
+    re-ranked against the exact f32 ``factors`` rows."""
+    if meta.quantize != "int8":
+        if _on_cpu(users):
+            return _gr.gam_retrieve_plain(users, factors, q_tau, q_mask, meta,
+                                          kappa, **kw)
+        return _gr.gam_retrieve(users, factors, q_tau, q_mask, meta, kappa,
+                                **kw)
+    if factors.shape[0] != meta.n_rows:
+        raise ValueError(f"factors rows {factors.shape[0]} != meta.n_rows "
+                         f"{meta.n_rows}")
+    kappa = int(kappa)
+    pool = max(kappa, min(kappa * max(1, int(rerank_factor)), meta.n_pad))
     if _on_cpu(users):
-        return _gr.gam_retrieve_plain(users, factors, q_tau, q_mask, meta,
-                                      kappa, **kw)
-    return _gr.gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, **kw)
+        pool_res = _gr.gam_retrieve_q_plain(users, q_tau, q_mask, meta, pool,
+                                            **kw)
+    else:
+        pool_res = _gr.gam_retrieve_q(users, q_tau, q_mask, meta, pool, **kw)
+    return _gr.rerank_pool(pool_res, users, factors, kappa)
 
 
 def tess_project(z):

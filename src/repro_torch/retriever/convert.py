@@ -6,20 +6,28 @@ the CPU).  :func:`index_from_reference` turns the reference's index state,
 as ``repro``'s ``GamIndexRetriever.snapshot`` writes it, into the port's;
 :func:`index_to_reference` is the inverse, so ``repro`` restores the files
 the port writes.  Every other array keeps its dtype.
+
+Compressed catalogs: a posting table stored as a delta + group-varint CSR
+(``table_data``/``table_counts`` with a ``codec`` state entry) is
+re-densified bit-identically; an int8 slab (``factors_q``/``scales``) is
+loaded as written, and a file whose meta says int8 but holds no slab is
+re-quantized from its ``items``, as the reference does.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from repro_torch.core.inverted_index import DeviceIndex
-from repro_torch.kernels.gam_retrieve import RetrievalMeta
+from repro_torch.compress.postings import (CompressedPostings,
+                                           decode_postings, encode_postings)
+from repro_torch.core.inverted_index import (DeviceIndex, csr_to_table,
+                                             table_to_csr)
+from repro_torch.kernels.gam_retrieve import RetrievalMeta, quantize_meta
 from repro_torch.retriever.api import RetrieverSpec
-from repro_torch.retriever.types import UnsupportedOp
 
 __all__ = ["index_from_reference", "index_to_reference"]
-
-_LATER = "the compressed-catalog slice of the port (ROADMAP queue 1)"
 
 
 def _bits(arr) -> np.ndarray:
@@ -31,22 +39,24 @@ def index_from_reference(arrays: dict, state: dict, spec: RetrieverSpec,
                          ) -> tuple[DeviceIndex, RetrievalMeta]:
     """Reference index arrays + snapshot state -> the port's
     (:class:`DeviceIndex`, :class:`RetrievalMeta`) on ``device``."""
-    if "table_data" in arrays:
-        raise UnsupportedOp(spec.backend, "restore",
-                            f"varint-compressed posting tables come with {_LATER}")
-    meta = state["meta"]
-    if meta.get("quantize", "none") != "none":
-        raise UnsupportedOp(spec.backend, "restore",
-                            f"int8 factor slabs come with {_LATER}")
-
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
     n_items = int(np.asarray(arrays["ids"]).size)
-    index = DeviceIndex(table=dev(np.asarray(arrays["table"], np.int32)),
-                        counts=dev(np.asarray(arrays["counts"], np.int32)),
+    if "table_data" in arrays:
+        codec = state["codec"]
+        cp = CompressedPostings(np.asarray(arrays["table_data"], np.uint8),
+                                np.asarray(arrays["table_counts"], np.int32),
+                                int(codec["table_n"]))
+        table, counts = csr_to_table(*decode_postings(cp),
+                                     int(codec["bucket"]), sentinel=n_items)
+    else:
+        table, counts = arrays["table"], arrays["counts"]
+    index = DeviceIndex(table=dev(np.asarray(table, np.int32)),
+                        counts=dev(np.asarray(counts, np.int32)),
                         spill=dev(np.asarray(arrays["spill"], np.int32)),
                         n_items=n_items, p=spec.cfg.p)
+    meta = state["meta"]
     rmeta = RetrievalMeta(
         item_bits_t=dev(_bits(arrays["item_bits_t"])),
         block_union=dev(_bits(arrays["block_union"])),
@@ -54,24 +64,46 @@ def index_from_reference(arrays: dict, state: dict, spec: RetrieverSpec,
         spill8=dev(np.asarray(arrays["spill8"], np.int8)),
         p=spec.cfg.p, words=int(meta["words"]), bn=int(meta["bn"]),
         n_rows=int(meta["n_rows"]), n_pad=int(meta["n_pad"]))
+    if meta.get("quantize", "none") == "int8":
+        if "factors_q" in arrays:
+            rmeta = dataclasses.replace(
+                rmeta, quantize="int8",
+                factors_q=dev(np.asarray(arrays["factors_q"], np.int8)),
+                scales=dev(np.asarray(arrays["scales"], np.float32)))
+        else:       # a file written before slabs were persisted
+            rmeta = quantize_meta(rmeta, np.asarray(arrays["items"],
+                                                    np.float32))
     return index, rmeta
 
 
-def index_to_reference(index: DeviceIndex, meta: RetrievalMeta
+def index_to_reference(index: DeviceIndex, meta: RetrievalMeta, *,
+                       compress_postings: bool = False
                        ) -> tuple[dict[str, np.ndarray], dict]:
-    """The port's index -> (arrays, state) in the reference's layout."""
+    """The port's index -> (arrays, state) in the reference's layout; with
+    ``compress_postings`` the table is written as a varint CSR."""
     def host(t):
         return t.detach().cpu().numpy()
 
-    arrays = {
-        "table": host(index.table), "counts": host(index.counts),
-        "spill": host(index.spill),
-        "item_bits_t": host(meta.item_bits_t).view(np.uint32),
-        "block_union": host(meta.block_union).view(np.uint32),
-        "block_spill": host(meta.block_spill),
-        "spill8": host(meta.spill8),
-    }
-    state = {"meta": {"bn": meta.bn, "words": meta.words,
-                      "n_rows": meta.n_rows, "n_pad": meta.n_pad,
-                      "quantize": "none"}}
+    arrays: dict[str, np.ndarray] = {}
+    state: dict = {}
+    table, counts = host(index.table), host(index.counts)
+    if compress_postings:
+        cp = encode_postings(*table_to_csr(table, counts))
+        arrays.update(table_data=cp.data, table_counts=cp.counts)
+        state["codec"] = {"table_n": int(cp.n_values),
+                          "bucket": int(table.shape[1])}
+    else:
+        arrays.update(table=table, counts=counts)
+    arrays.update(
+        spill=host(index.spill),
+        item_bits_t=host(meta.item_bits_t).view(np.uint32),
+        block_union=host(meta.block_union).view(np.uint32),
+        block_spill=host(meta.block_spill),
+        spill8=host(meta.spill8))
+    if meta.quantize == "int8":
+        arrays.update(factors_q=host(meta.factors_q),
+                      scales=host(meta.scales))
+    state["meta"] = {"bn": meta.bn, "words": meta.words,
+                     "n_rows": meta.n_rows, "n_pad": meta.n_pad,
+                     "quantize": meta.quantize}
     return arrays, state

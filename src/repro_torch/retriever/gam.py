@@ -6,9 +6,14 @@ patterns are indexed in a dense-bucket :class:`DeviceIndex` and packed into
 bitsets and block unions, and ``query`` answers top-kappa MIPS with one call
 of the fused ``gam_retrieve`` kernel: candidate overlap from the bitsets,
 zero-candidate blocks skipped, exact f32 scores of candidates only.
-Mutations rebuild in O(N), as in the reference.  The int8 factor slabs,
-the varint posting storage and the CPU ``gam`` backend come with later
-slices and raise :class:`UnsupportedOp`.
+Mutations rebuild in O(N), as in the reference.
+
+The compressed catalog: ``quantize="int8"`` quantizes the item factors into
+a per-block-scaled int8 slab on the retriever's device, which the int8
+kernel scores; its pool of ``kappa * rerank_factor`` rows is re-ranked
+against the exact f32 rows.  ``compress_postings`` is storage-only here:
+snapshots hold the posting table as a delta + group-varint CSR.  The CPU
+``gam`` backend comes with a later slice.
 """
 from __future__ import annotations
 
@@ -31,9 +36,6 @@ from repro_torch.retriever.types import (RetrievalResult, UnsupportedOp,
 
 __all__ = ["GamIndexRetriever"]
 
-_LATER = "the compressed-catalog slice of the port (ROADMAP queue 1)"
-
-
 class GamIndexRetriever(Retriever):
     """phi-map + dense-bucket index + fused candidate-only scoring."""
 
@@ -41,12 +43,6 @@ class GamIndexRetriever(Retriever):
         if spec.backend != "gam-device":
             raise UnsupportedOp(spec.backend, "open_retriever",
                                 "this slice of the port serves 'gam-device'")
-        if spec.quantize != "none":
-            raise UnsupportedOp(spec.backend, "quantize",
-                                f"int8 factor slabs come with {_LATER}")
-        if spec.compress_postings:
-            raise UnsupportedOp(spec.backend, "compress_postings",
-                                f"varint posting storage comes with {_LATER}")
         super().__init__(spec, device)
         self._empty()
 
@@ -95,7 +91,8 @@ class GamIndexRetriever(Retriever):
             tau, vals != 0.0, spec.cfg.p,
             spill_rows=self.device_index.spill.cpu().numpy(),
             bn=spec.bn or min(512, -(-max(n, 1) // 128) * 128),
-            device=self.device)
+            factors=self._items_dev if spec.quantize == "int8" else None,
+            quantize=spec.quantize, device=self.device)
         return self
 
     def upsert(self, ids, factors) -> None:
@@ -147,7 +144,8 @@ class GamIndexRetriever(Retriever):
         res = gam_retrieve(u, self._items_dev, q_tau, q_mask,
                            self._retrieve_meta, kk,
                            min_overlap=0 if exact else self.spec.min_overlap,
-                           bq=self.spec.bq)
+                           bq=self.spec.bq,
+                           rerank_factor=self.spec.rerank_factor)
         vals = res.vals.cpu().numpy()
         rows = res.rows.cpu().numpy().astype(np.int64)
         blk_counts = res.blk_counts.cpu().numpy().astype(np.int64)
@@ -191,6 +189,11 @@ class GamIndexRetriever(Retriever):
                    compress_postings=self.spec.compress_postings)
         if self.device_index is not None:
             out["n_spill"] = int(self.device_index.spill.shape[0])
+            meta = self._retrieve_meta
+            if meta.quantize == "int8":
+                out["factor_bytes"] = (
+                    meta.factors_q.numel() * meta.factors_q.element_size()
+                    + meta.scales.numel() * meta.scales.element_size())
         return out
 
     def snapshot(self, path: str) -> None:
@@ -200,8 +203,9 @@ class GamIndexRetriever(Retriever):
         if self._scale is not None:
             arrays["scale"] = self._scale
         if self.device_index is not None:
-            index_arrays, extra = index_to_reference(self.device_index,
-                                                     self._retrieve_meta)
+            index_arrays, extra = index_to_reference(
+                self.device_index, self._retrieve_meta,
+                compress_postings=self.spec.compress_postings)
             arrays.update(index_arrays)
         write_snapshot(path, self.spec, arrays, extra)
 

@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.compress import quantize_int8  # noqa: E402
 from repro_torch.core.inverted_index import build_segment  # noqa: E402
 from repro_torch.core.mapping import GamConfig, sparse_map  # noqa: E402
 from repro_torch.kernels import gam_retrieve as gr  # noqa: E402
@@ -62,15 +63,17 @@ def test_gam_score_kernel_equals_plain(dev, q, n, k, dtype):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("n,q,kappa,mo,bucket,bn,bq", [
+RETRIEVE_CASES = [
     (350, 16, 10, 2, 512, 128, 32),
     (300, 7, 5, 1, 4, 64, 8),
     (123, 3, 50, 3, 256, 32, 8),
     (513, 11, 17, 2, 8, 96, 8),
     (200, 9, 10, 0, 512, 64, 12),
     (5000, 300, 128, 1, 64, 256, 32),
-])
-def test_gam_retrieve_kernel_equals_plain(dev, n, q, kappa, mo, bucket, bn, bq):
+]
+
+
+def _catalog(dev, n, q, bucket, bn, quantize="none"):
     cfg = CFG
     items = torch.from_numpy(unit_factors(n, 16, n)).to(dev)
     users = torch.from_numpy(unit_factors(q, 16, n + 1)).to(dev)
@@ -79,7 +82,20 @@ def test_gam_retrieve_kernel_equals_plain(dev, n, q, kappa, mo, bucket, bn, bq):
     _, _, spill = build_segment(tau.cpu().numpy(), cfg.p, bucket,
                                 (vals != 0).cpu().numpy())
     meta = gr.build_retrieval_meta(tau, vals != 0, cfg.p, spill_rows=spill,
-                                   bn=bn, device=dev)
+                                   bn=bn, factors=items, quantize=quantize,
+                                   device=dev)
+    return items, users, q_tau, q_vals, meta
+
+
+def _max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
+    a = a.contiguous().view(torch.int32).long()
+    b = b.contiguous().view(torch.int32).long()
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+@pytest.mark.parametrize("n,q,kappa,mo,bucket,bn,bq", RETRIEVE_CASES)
+def test_gam_retrieve_kernel_equals_plain(dev, n, q, kappa, mo, bucket, bn, bq):
+    items, users, q_tau, q_vals, meta = _catalog(dev, n, q, bucket, bn)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     alive[::7] = False
     for al in (None, alive):
@@ -112,6 +128,62 @@ def test_gam_device_retriever_on_card_equals_cpu(dev):
     on_cpu = open_retriever(spec, items=items, device="cpu").query(
         users, explain=True)
     assert gr.gam_retrieve.launches == before + 1
+    np.testing.assert_array_equal(on_card.ids, on_cpu.ids)
+    np.testing.assert_array_equal(on_card.scores, on_cpu.scores)
+    assert on_card.explain == on_cpu.explain
+
+
+@pytest.mark.parametrize("n,q,pool,mo,bucket,bn,bq", RETRIEVE_CASES)
+def test_gam_retrieve_q_kernel_equals_plain(dev, n, q, pool, mo, bucket, bn,
+                                            bq):
+    """Pool rows, counts and skip map exact; pool scores within 4 ulp."""
+    _, users, q_tau, q_vals, meta = _catalog(dev, n, q, bucket, bn, "int8")
+    pool = min(pool, meta.n_pad)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    alive[::7] = False
+    for al in (None, alive):
+        args = (users, q_tau, q_vals != 0, meta, pool)
+        got = gr.gam_retrieve_q(*args, min_overlap=mo, bq=bq, alive=al)
+        torch.cuda.synchronize()
+        want = gr.gam_retrieve_q_plain(*args, min_overlap=mo, bq=bq, alive=al)
+        for name in ("rows", "blk_counts", "skipped"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert _max_ulp(got.vals, want.vals) <= 4
+
+
+def test_int8_slab_on_card_equals_cpu_slab(dev):
+    rng = np.random.default_rng(8)
+    x = (rng.normal(size=(4096, 10)) * 3).astype(np.float32)
+    x[512:1024] = 0.0                                   # an all-zero block
+    cpu_q, cpu_s = quantize_int8(torch.from_numpy(x), block=256)
+    card_q, card_s = quantize_int8(torch.from_numpy(x).to(dev), block=256)
+    assert torch.equal(card_q.cpu(), cpu_q)
+    assert torch.equal(card_s.cpu().view(torch.int32), cpu_s.view(torch.int32))
+    meta_card = _catalog(dev, 3000, 4, 64, 256, "int8")[-1]
+    meta_cpu = _catalog(torch.device("cpu"), 3000, 4, 64, 256, "int8")[-1]
+    assert torch.equal(meta_card.factors_q.cpu(), meta_cpu.factors_q)
+    assert torch.equal(meta_card.scales.cpu().view(torch.int32),
+                       meta_cpu.scales.view(torch.int32))
+
+
+def test_gam_retrieve_q_kernel_rejects_wide_pool(dev):
+    _, users, q_tau, q_vals, meta = _catalog(dev, 600, 3, 64, 32, "int8")
+    with pytest.raises(ValueError, match="GAM_RETRIEVE_MAX_KAPPA"):
+        gr.gam_retrieve_q(users, q_tau, q_vals != 0, meta,
+                          gr.GAM_RETRIEVE_MAX_KAPPA + 1)
+
+
+def test_int8_gam_device_retriever_on_card_equals_cpu(dev):
+    spec = RetrieverSpec(cfg=CFG, backend="gam-device", min_overlap=2,
+                         quantize="int8", compress_postings=True,
+                         rerank_factor=4)
+    items, users = unit_factors(3000, 16, 3), unit_factors(70, 16, 4)
+    before_q, before_f32 = gr.gam_retrieve_q.launches, gr.gam_retrieve.launches
+    on_card = open_retriever(spec, items=items).query(users, explain=True)
+    on_cpu = open_retriever(spec, items=items, device="cpu").query(
+        users, explain=True)
+    assert gr.gam_retrieve_q.launches == before_q + 1
+    assert gr.gam_retrieve.launches == before_f32
     np.testing.assert_array_equal(on_card.ids, on_cpu.ids)
     np.testing.assert_array_equal(on_card.scores, on_cpu.scores)
     assert on_card.explain == on_cpu.explain

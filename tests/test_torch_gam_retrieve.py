@@ -22,6 +22,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from conftest import CFG, unit_factors  # noqa: E402
 
+from repro.compress import quantize as jquant  # noqa: E402
 from repro.core.inverted_index import DeviceIndex as JDeviceIndex  # noqa: E402
 from repro.core.mapping import sparse_map as j_sparse_map  # noqa: E402
 from repro.core.retrieval import masked_topk as j_masked_topk  # noqa: E402
@@ -298,3 +299,173 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         gam_score.gam_score(z, z, torch.ones((2, 2), dtype=torch.bool))
     assert ops.tess_project(z)[0].shape == (2, 4)
     assert tess_project.tess_project.launches == 0
+
+
+# ------------------------------------------------------------ the int8 path
+
+
+def _q_metas(tau, mask, spill, bn, factors, n_rows=None):
+    kw = dict(n_rows=n_rows, spill_rows=spill, bn=bn, factors=factors,
+              quantize="int8")
+    return (jgr.build_retrieval_meta(tau, mask, CFG.p, **kw),
+            tgr.build_retrieval_meta(tau, mask, CFG.p, **kw))
+
+
+def _assert_slab_equal(jm, tm):
+    assert tm.quantize == jm.quantize == "int8"
+    np.testing.assert_array_equal(tm.factors_q.numpy(),
+                                  np.asarray(jm.factors_q))
+    np.testing.assert_array_equal(tm.scales.numpy().view(np.uint32),
+                                  np.asarray(jm.scales).view(np.uint32))
+    assert tuple(tm.scales.shape) == (1, tm.n_blocks)
+
+
+@pytest.mark.parametrize("n,n_rows,bn", [(64, None, 256), (1000, None, 96),
+                                         (257, 300, 8), (350, 512, 128)])
+def test_build_retrieval_meta_int8_slab_matches_reference(n, n_rows, bn):
+    items = unit_factors(n, 16, 60 + n) * 3.0
+    tau, mask = _mapped(items)
+    jm, tm = _q_metas(tau, mask, None, bn, items, n_rows)
+    _assert_meta_equal(jm, tm)
+    _assert_slab_equal(jm, tm)
+    # quantize_meta on existing metadata attaches the same slab
+    _assert_slab_equal(jm, tgr.quantize_meta(
+        tgr.build_retrieval_meta(tau, mask, CFG.p, n_rows=n_rows, bn=bn),
+        _t(items)))
+
+
+def test_int8_meta_errors_match_reference():
+    tau, mask = _mapped(unit_factors(40, 16, 3))
+    for mod in (jgr, tgr):
+        with pytest.raises(ValueError, match="quantize"):
+            mod.build_retrieval_meta(tau, mask, CFG.p, quantize="int4")
+        with pytest.raises(ValueError, match="factor slab"):
+            mod.build_retrieval_meta(tau, mask, CFG.p, quantize="int8")
+        meta = mod.build_retrieval_meta(tau, mask, CFG.p, bn=8)
+        with pytest.raises(ValueError, match="n_pad"):
+            mod.quantize_meta(meta, np.zeros((meta.n_pad + 1, 16), np.float32))
+    with pytest.raises(ValueError, match="int8 slab"):
+        tgr.gam_retrieve_q_plain(_t(unit_factors(2, 16, 1)), _t(tau[:2]),
+                                 _t(mask[:2]), meta, 10)
+
+
+def _assert_pool_close(got, want, users, items) -> int:
+    """Counts and skip map exact; pool scores within 4 ulp of the scale;
+    pool rows exact except on queries where every differing row scores
+    within 4 ulp of the pool's boundary.  Returns the queries excused."""
+    np.testing.assert_array_equal(got.blk_counts.numpy(),
+                                  np.asarray(want.blk_counts))
+    np.testing.assert_array_equal(got.skipped.numpy(),
+                                  np.asarray(want.skipped))
+    g_vals, w_vals = got.vals.numpy(), np.asarray(want.vals)
+    g_rows, w_rows = got.rows.numpy(), np.asarray(want.rows)
+    np.testing.assert_array_equal(g_vals <= NEG / 2, w_vals <= NEG / 2)
+    empty = w_vals <= NEG / 2
+    assert_scores_close(np.where(empty, 0, g_vals), np.where(empty, 0, w_vals),
+                        users, items)
+    tol = ULP * np.spacing(np.float32(
+        np.linalg.norm(users, axis=1).max()
+        * np.linalg.norm(items, axis=1).max()))
+    excused = 0
+    for qi in np.nonzero((g_rows != w_rows).any(axis=1))[0]:
+        edge = w_vals[qi, -1]
+        g_only = ~np.isin(g_rows[qi], w_rows[qi])
+        w_only = ~np.isin(w_rows[qi], g_rows[qi])
+        assert (np.abs(g_vals[qi][g_only] - edge) <= 2 * tol).all(), qi
+        assert (np.abs(w_vals[qi][w_only] - edge) <= 2 * tol).all(), qi
+        excused += 1
+    return excused
+
+
+Q_CASES = [
+    (350, 16, 10, 2, 512, 128, 32),
+    (300, 7, 5, 1, 4, 64, 8),
+    (123, 3, 50, 3, 256, 32, 8),
+    (513, 11, 17, 2, 8, 96, 8),
+    (200, 9, 10, 0, 512, 64, 12),
+    (2048, 64, 128, 1, 64, 256, 32),
+]
+
+
+@pytest.mark.parametrize("n,q,pool,mo,bucket,bn,bq", Q_CASES)
+@pytest.mark.parametrize("with_alive", [False, True])
+def test_plain_gam_retrieve_q_matches_reference_kernel(n, q, pool, mo, bucket,
+                                                       bn, bq, with_alive):
+    items = unit_factors(n, 16, n)
+    users = unit_factors(q, 16, n + 1)
+    tau, mask = _mapped(items)
+    q_tau, q_mask = _mapped(users)
+    spill = np.asarray(JDeviceIndex.build(tau, CFG.p, bucket, mask=mask).spill)
+    jm, tm = _q_metas(tau, mask, spill, bn, items)
+    _assert_slab_equal(jm, tm)
+    alive = np.ones(n, bool)
+    if with_alive:
+        alive[::7] = False
+    pool = min(pool, jm.n_pad)
+    want = jgr._gam_retrieve_q(
+        jnp.asarray(users), jm.factors_q, jm.scales, jnp.asarray(q_tau),
+        jnp.asarray(q_mask), jnp.asarray(alive), jm.item_bits_t,
+        jm.block_union, jm.block_spill, jm.spill8, kappa=pool,
+        min_overlap=mo, bq=bq, bn=jm.bn, words=jm.words, n_pad=jm.n_pad,
+        interpret=True, loop_merge=False)
+    got = tgr.gam_retrieve_q_plain(
+        _t(users), _t(q_tau), _t(q_mask), tm, pool, min_overlap=mo, bq=bq,
+        alive=_t(alive) if with_alive else None)
+    decoded = jquant.dequantize_int8(jm.factors_q, np.asarray(jm.scales)[0],
+                                     jm.bn)
+    excused = _assert_pool_close(got, want, users, decoded)
+    assert excused <= q // 4, f"{excused} of {q} queries excused"
+
+
+def test_plain_gam_retrieve_q_chunked_walk_matches_one_chunk(monkeypatch):
+    items = unit_factors(700, 16, 23)
+    users = unit_factors(9, 16, 24)
+    tau, mask = _mapped(items)
+    q_tau, q_mask = _mapped(users)
+    tm = tgr.build_retrieval_meta(tau, mask, CFG.p, bn=32, factors=items,
+                                  quantize="int8")
+    args = (_t(users), _t(q_tau), _t(q_mask), tm, 40)
+    whole = tgr.gam_retrieve_q_plain(*args, min_overlap=2)
+    monkeypatch.setattr(tgr, "_PLAIN_CHUNK", 9 * 32)      # one block a chunk
+    chunked = tgr.gam_retrieve_q_plain(*args, min_overlap=2)
+    for a, b in zip(whole, chunked):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("n,q,kappa,pool,mo", [(350, 16, 10, 40, 2),
+                                               (123, 5, 10, 20, 4),
+                                               (513, 11, 17, 17, 1),
+                                               (64, 6, 30, 64, 17)])
+def test_rerank_pool_matches_reference(n, q, kappa, pool, mo):
+    items = unit_factors(n, 16, 70 + n)
+    users = unit_factors(q, 16, 71 + n)
+    tau, mask = _mapped(items)
+    q_tau, q_mask = _mapped(users)
+    jm, _ = _q_metas(tau, mask, None, 32, items)
+    pool_res = jgr._gam_retrieve_q(
+        jnp.asarray(users), jm.factors_q, jm.scales, jnp.asarray(q_tau),
+        jnp.asarray(q_mask), jnp.ones(n, bool), jm.item_bits_t,
+        jm.block_union, jm.block_spill, jm.spill8, kappa=pool,
+        min_overlap=mo, bq=8, bn=jm.bn, words=jm.words, n_pad=jm.n_pad,
+        interpret=True, loop_merge=False)
+    want = jgr._rerank_pool(pool_res, users, items, kappa)
+    got = tgr.rerank_pool(tgr.GamRetrieveResult(*(_t(a) for a in pool_res)),
+                          _t(users), _t(items), kappa)
+    _assert_retrieve_equal(got, want, users, items)
+    # the re-ranked scores are the kernels' exact f32 scores of their rows
+    real = got.rows.numpy() >= 0
+    exact = gam_score_plain(_t(users), _t(items),
+                            torch.ones((q, n), dtype=torch.bool)).numpy()
+    np.testing.assert_array_equal(
+        got.vals.numpy()[real],
+        np.take_along_axis(exact, np.maximum(got.rows.numpy(), 0), 1)[real])
+
+
+def test_int8_kernel_wrapper_refuses_cpu_tensors():
+    items = unit_factors(64, 16, 1)
+    tau, mask = _mapped(items)
+    tm = tgr.build_retrieval_meta(tau, mask, CFG.p, bn=32, factors=items,
+                                  quantize="int8")
+    with pytest.raises(ValueError, match="CUDA"):
+        tgr.gam_retrieve_q(_t(items[:2]), _t(tau[:2]), _t(mask[:2]), tm, 10)
+    assert tgr.gam_retrieve_q.launches == 0

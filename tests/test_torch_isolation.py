@@ -22,11 +22,34 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch, repro_torch.retriever\n"
             "import repro_torch.retriever.gam, repro_torch.retriever.brute\n"
             "import repro_torch.core, repro_torch.kernels.ops\n"
+            "import repro_torch.compress\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_every_module_of_the_port_imports_first():
+    """Each module imports in an interpreter that has imported no other
+    module of the port (no import cycle depends on the order)."""
+    src = ROOT / "src"
+    names = sorted(".".join(p.relative_to(src).with_suffix("").parts)
+                   .removesuffix(".__init__")
+                   for p in PORT_FILES if p.is_relative_to(src))
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"for name in {names!r}:\n"
+            "    for m in [m for m in sys.modules if m.startswith('repro_')]:\n"
+            "        del sys.modules[m]\n"
+            "    importlib.import_module(name)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(src), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 

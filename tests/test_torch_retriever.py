@@ -1,6 +1,7 @@
 """The port's ``gam-device`` and ``brute`` backends against ``repro``'s, end to
 end on the CPU: answers, explain, mutations, snapshots in both directions,
-and the settings this slice does not serve.
+the compressed catalog (int8 slab + exact re-rank, varint posting storage),
+and the settings the port does not serve yet.
 
 ids, ``n_scored``, ``discarded_frac`` and every ``explain`` field match
 exactly; scores within 4 ulp of the dot-product scale (see
@@ -196,13 +197,9 @@ def test_older_snapshot_formats_read_as_the_reference_reads_them(
     _assert_same_answer(got, want, users, items)
 
 
-def test_unsupported_settings_raise_typed_errors(tmp_path):
+def test_unsupported_settings_raise_typed_errors():
     _, tspec = _specs("cfg")
     cfg = tspec.cfg
-    for bad in (dict(quantize="int8"), dict(compress_postings=True)):
-        with pytest.raises(tr.UnsupportedOp, match="later|slice"):
-            tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="gam-device",
-                                               **bad), device="cpu")
     with pytest.raises(tr.UnsupportedOp, match="slice"):
         tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="gam"),
                           device="cpu")
@@ -217,12 +214,132 @@ def test_unsupported_settings_raise_typed_errors(tmp_path):
                               items=unit_factors(10, 16, 0), device="cpu")
     with pytest.raises(tr.UnsupportedOp):
         brute.candidate_masks(unit_factors(2, 16, 1))
-    # a reference file with varint-compressed postings restores in a later slice
     items, _ = _data("cfg")
-    jspec, _ = _specs("cfg", compress_postings=True)
-    jr.open_retriever(jspec, items=items).snapshot(str(tmp_path / "c.npz"))
-    with pytest.raises(tr.UnsupportedOp, match="slice"):
-        tr.open_retriever(tspec, snapshot=str(tmp_path / "c.npz"),
-                          device="cpu")
     with pytest.raises(ValueError, match="either"):
         tr.open_retriever(tspec, items=items, snapshot="x", device="cpu")
+
+
+# ------------------------------------------------- the compressed catalog
+
+COMPRESSED = dict(quantize="int8", compress_postings=True)
+
+
+@pytest.mark.parametrize("schema", ["gam_mf", "cfg"])
+@pytest.mark.parametrize("rerank_factor", [1, 2, 4])
+def test_int8_gam_device_matches_reference_end_to_end(schema, rerank_factor):
+    items, users = _data(schema)
+    jspec, tspec = _specs(schema, rerank_factor=rerank_factor, **COMPRESSED)
+    want = jr.open_retriever(jspec, items=items)
+    got = tr.open_retriever(tspec, items=items, device="cpu")
+    jm, tm = want._retrieve_meta, got._retrieve_meta
+    np.testing.assert_array_equal(tm.factors_q.numpy(),
+                                  np.asarray(jm.factors_q))
+    np.testing.assert_array_equal(tm.scales.numpy(), np.asarray(jm.scales))
+    for exact in (False, True):
+        _assert_same_answer(got.query(users, explain=True, exact=exact),
+                            want.query(users, explain=True, exact=exact),
+                            users, items, explain=True)
+    ref_stats = want.stats()
+    assert {k: ref_stats[k] for k in got.stats()} == got.stats()
+    assert got.stats()["factor_bytes"] == tm.n_pad * tm.factors_q.shape[1] \
+        + 4 * tm.n_blocks
+
+
+def test_int8_answers_equal_the_f32_path_where_the_pool_covers_it():
+    """The re-rank makes the int8 path exact: with a pool as wide as the
+    catalog it serves the f32 path's answer bit for bit."""
+    items, users = _data("cfg")
+    _, f32 = _specs("cfg")
+    _, int8 = _specs("cfg", quantize="int8", rerank_factor=N_ITEMS)
+    a = tr.open_retriever(f32, items=items, device="cpu").query(users, 10)
+    b = tr.open_retriever(int8, items=items, device="cpu").query(users, 10)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.scores, b.scores)
+    np.testing.assert_array_equal(a.n_scored, b.n_scored)
+
+
+@pytest.mark.parametrize("settings", [
+    dict(quantize="int8", compress_postings=True),
+    dict(compress_postings=True),
+    dict(quantize="int8"),
+], ids=["int8+varint", "varint", "int8"])
+def test_compressed_snapshots_cross_between_packages(tmp_path, settings):
+    from repro_torch.checkpoint import load_arrays
+    items, users = _data("gam_mf")
+    jspec, tspec = _specs("gam_mf", whiten=True, **settings)
+    j_built = jr.open_retriever(jspec, items=items)
+    t_built = tr.open_retriever(tspec, items=items, device="cpu")
+    want = j_built.query(users, explain=True)
+    mine = t_built.query(users, explain=True)
+    _assert_same_answer(mine, want, users, items, explain=True)
+    j_built.snapshot(str(tmp_path / "ref.npz"))
+    t_built.snapshot(str(tmp_path / "port.npz"))
+    ref_arrays, ref_header = load_arrays(str(tmp_path / "ref.npz"))
+    port_arrays, port_header = load_arrays(str(tmp_path / "port.npz"))
+    assert set(port_arrays) == set(ref_arrays)
+    assert ("table_data" in port_arrays) == settings.get("compress_postings",
+                                                         False)
+    assert ("table" in port_arrays) != ("table_data" in port_arrays)
+    assert ("factors_q" in port_arrays) == ("quantize" in settings)
+    for name, arr in ref_arrays.items():
+        np.testing.assert_array_equal(port_arrays[name], arr, err_msg=name)
+        assert port_arrays[name].dtype == arr.dtype, name
+    assert port_header == ref_header
+    # repro writes -> the port restores; the port writes -> repro restores
+    got = tr.open_retriever(tspec, snapshot=str(tmp_path / "ref.npz"),
+                            device="cpu").query(users, explain=True)
+    back = jr.open_retriever(jspec, snapshot=str(tmp_path / "port.npz")
+                             ).query(users, explain=True)
+    again = tr.open_retriever(tspec, snapshot=str(tmp_path / "port.npz"),
+                              device="cpu").query(users, explain=True)
+    for a, b in ((got, mine), (back, want), (again, mine)):
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.scores, b.scores)
+        assert a.explain == b.explain
+
+
+def test_int8_file_without_slab_is_requantized_as_reference(tmp_path):
+    """A file whose meta says int8 but holds no slab (written before slabs
+    were persisted) is re-quantized from its items by both packages."""
+    from repro_torch.checkpoint import load_arrays, save_arrays
+    items, users = _data("cfg")
+    jspec, tspec = _specs("cfg", quantize="int8")
+    path = str(tmp_path / "old.npz")
+    built = tr.open_retriever(tspec, items=items, device="cpu")
+    mine = built.query(users)
+    built.snapshot(path)
+    arrays, header = load_arrays(path)
+    del arrays["factors_q"], arrays["scales"]
+    save_arrays(path, arrays, header)
+    got = tr.open_retriever(tspec, snapshot=path, device="cpu")
+    want = jr.open_retriever(jspec, snapshot=path)
+    np.testing.assert_array_equal(got._retrieve_meta.factors_q.numpy(),
+                                  np.asarray(want._retrieve_meta.factors_q))
+    np.testing.assert_array_equal(got.query(users).ids, mine.ids)
+    _assert_same_answer(got.query(users), want.query(users), users, items)
+
+
+@pytest.mark.parametrize("saved,opened", [("int8", "none"), ("none", "int8")])
+def test_quantize_mismatch_is_refused(tmp_path, saved, opened):
+    items, _ = _data("cfg")
+    jspec, _ = _specs("cfg", quantize=saved)
+    _, tspec = _specs("cfg", quantize=opened)
+    path = str(tmp_path / "q.npz")
+    jr.open_retriever(jspec, items=items).snapshot(path)
+    with pytest.raises(ValueError, match="quantize"):
+        tr.open_retriever(tspec, snapshot=path, device="cpu")
+
+
+def test_int8_mutations_match_reference():
+    items, users = _data("cfg")
+    ids = np.arange(N_ITEMS, dtype=np.int64) * 3 + 7
+    jspec, tspec = _specs("cfg", bucket=1024, **COMPRESSED)
+    want = jr.open_retriever(jspec, items=items, ids=ids)
+    got = tr.open_retriever(tspec, items=items, ids=ids, device="cpu")
+    new = unit_factors(40, 16, 98)
+    for r in (want, got):
+        r.upsert(np.concatenate([ids[:20], np.arange(1, 21)]), new)
+        r.delete(ids[100:300])
+    _assert_same_answer(got.query(users, 7, explain=True),
+                        want.query(users, 7, explain=True), users,
+                        np.concatenate([items, new]), explain=True)
