@@ -45,15 +45,18 @@
 //     the number of entries there that beat it (a binary search).  The order
 //     is total on distinct rows, so the answer does not depend on `splits`.
 //
-// Bound on an H100: bytes.  A query batch streams the pattern bitsets and the
-// spill/alive flags of every unskipped block, and the factor rows of the
-// candidates (4k bytes a row in f32; k bytes plus a 4-byte scale in int8);
-// the popcounts and the 2k (f32) or 3k (int8: decode, multiply, add) flops
-// per candidate are far below the integer and f32 rates.  Skipped tiles cost
-// one flag read per warp.  The int8 slab cuts the row bytes 4x; its rows are
-// k bytes, unaligned, and are read a byte at a time.  Making the block reuse
-// the bitsets across its 8 queries from shared memory, and using wider
-// loads, is later work.
+// Bound on an H100, each input counted once: the bytes are the pattern
+// bitsets and spill/alive flags of every unskipped block and the factor rows
+// of the candidates (4k bytes a row in f32; k bytes in int8, plus one 4-byte
+// scale per unskipped block); the f32 operations are 2k per (query,
+// candidate) pair, plus in int8 one decode multiply per element of a
+// candidate row, since the decoded row does not depend on the query.  At a
+// few hundred queries the operations set the bound.  The kernel is far
+// above it: each query's warp re-reads its tiles' bitsets and decodes its
+// candidates' rows on its own, and skipped tiles cost one flag read per warp.
+// The int8 slab cuts the row bytes 4x; its rows are k bytes, unaligned, and
+// are read a byte at a time.  Making the block reuse the bitsets across its
+// 8 queries from shared memory, and using wider loads, is later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

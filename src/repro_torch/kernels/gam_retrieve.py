@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.compress.quantize import quantize_int8
+from repro_torch.compress.quantize import dequantize_int8, quantize_int8
 from repro_torch.kernels import _build
 from repro_torch.kernels.gam_score import NEG, dot_plain, fma_dot
 
@@ -301,11 +301,13 @@ def gam_retrieve_q_plain(users, q_tau, q_mask, meta: RetrievalMeta,
     if meta.quantize != "int8":
         raise ValueError("gam_retrieve_q needs a meta with an int8 slab "
                          "(quantize_meta)")
-    scale = meta.scales[0]
+    bn = meta.bn
 
-    def decode(lo, hi):
-        blocks = torch.arange(lo, hi, device=scale.device) // meta.bn
-        return meta.factors_q[lo:hi].float() * scale[blocks][:, None]
+    def decode(lo, hi):      # lo is block-aligned; hi may cut into a block
+        b0, b1 = lo // bn, -(-hi // bn)
+        rows = dequantize_int8(meta.factors_q[b0 * bn:b1 * bn],
+                               meta.scales[0, b0:b1], bn)
+        return rows[:hi - lo]
 
     return _plain_walk(users, decode, q_tau, q_mask, meta, pool, min_overlap,
                        alive, bq)
