@@ -35,9 +35,36 @@ Phases, each of which fails the run if it fails:
    agreement with the f32 path, pool-miss rows, how far each missed oracle
    row leads the pool's last row against the int8 score-error bound,
    factor bytes and request latency are printed.
+   A pool of 256 (past the kernel's shared-memory lists) must agree with
+   the plain version too; the int8 kernel's time at pools of 10, 40, 128
+   and 256 is printed.
 4. Timings: each kernel's median time, its plain version's, and its bound
-   on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32), printed as one ``kernels``
-   JSON line; then the card's name and power limit; then the result line.
+   on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32, 989 TFLOP/s bf16).
+5. LM serving: tinyllama-1.1b at full width (22 layers, d 2048, 32 / 4
+   heads, d_ff 5632, vocab 32,000 padded to 32,256) in bf16 with
+   ``use_decode_kernel=True``, random weights from a seed, answers
+   ``Engine.generate`` (greedy, batch 8, prompts of 1,024 tokens, 32 new
+   tokens, capacity 1,064): one warm-up and 3 timed calls, each of which
+   must launch ``decode_attention`` exactly 22 x 31 times.  Teacher-forced
+   on the kernel path's tokens, the einsum path (``use_decode_kernel=False``)
+   must give bf16 logits within 8 bf16 steps of the largest logit; at f32
+   the greedy picks must be equal except on near-ties (the einsum path's top
+   two within twice the paths' logit difference), counted, and the logits
+   within 1e-3.  ``decode_attention`` is timed at this shape and at one
+   layer of the ``decode_32k`` shape (batch 128, S 32,768), beside its plain
+   version, its bound and ``scaled_dot_product_attention``.  Prefill ms,
+   decode-step p50/p99, tokens/s, the kernel's share of a step and peak
+   device memory are printed.
+5b. The GAM LM head: ``Engine(use_gam_head=True, gam_threshold=1.5,
+   gam_min_overlap=2)`` on tinyllama narrowed to 4 layers, d 512, 8 / 1
+   heads, d_ff 1,408, at the full vocab of 32,000 (the map runs at k = 512):
+   batch 8, prompts of 128, 16 new tokens.  ``tess_project`` and
+   ``gam_score`` must launch; each step's ids must equal ``masked_topk`` on
+   the same masks; both kernels are held against their plain versions at
+   this path's shapes.  Vocab rows scored per step, the discarded fraction
+   and the agreement with the exact head are printed.
+Then the ``kernels`` JSON line (every kernel, at each shape above), the
+card's name and power limit, and the result line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository.  Imports nothing of JAX.
@@ -59,6 +86,7 @@ N_ITEMS = 1 << 20
 K, N_CLUSTERS, SIGMA, THRESHOLD, MIN_OVERLAP, KAPPA = 10, 64, 0.05, 0.2, 2, 10
 N_REQUESTS, BATCH = 8, 256
 RERANK = 4                     # int8 re-rank pool = KAPPA * RERANK
+WIDE_POOL = 256                # a pool past the kernel's shared-memory lists
 ULP = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM data sheet, outside the tensor cores
@@ -126,6 +154,26 @@ def time_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def graph_ms(torch, fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, the graph replayed (CUDA events, median of ``reps``), over
+    ``calls``.  At microsecond kernels this leaves out the host's launch
+    overhead, which the events around eager calls would time instead."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    torch.cuda.synchronize()
+    return time_ms(torch, graph.replay, reps) / calls
+
+
 def rerank_choice(torch, pool_rows, sc, kappa, topk_desc, neg):
     """What the exact re-rank must serve: the top ``kappa`` of each query's
     pool rows under the exact scores ``sc`` (Q, N), ordered (score desc, row
@@ -159,6 +207,431 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------ LM serving phases
+
+LM_ARCH = "tinyllama-1.1b"
+LM_SHAPE = dict(n_layers=22, d_model=2048, n_heads=32, n_kv_heads=4,
+                head_dim=64, d_ff=5632, vocab=32000)
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 1024, 32
+LM_CAPACITY = LM_PROMPT + LM_NEW + 8       # as launch/serve.py sizes it
+LM_CALLS = 3                               # timed, after one warm-up
+# bf16 logits of the kernel path and the einsum path may differ by this many
+# bf16 steps at the largest logit's magnitude: each of the 22 layers rounds
+# its attention output and residual stream to bf16 (relative step 2^-8)
+# after summing in another order, and the logits are themselves bf16
+LM_BF16_ULPS = 8
+LM_F32_TOL = 1e-3                          # f32 logits, kernel vs einsum
+GAM_LM = dict(n_layers=4, d_model=512, n_heads=8, n_kv_heads=1, head_dim=64,
+              d_ff=1408)                  # narrow enough for the index
+GAM_PROMPT, GAM_NEW = 128, 16
+BF16_FLOPS = 989e12                        # H100 SXM data sheet, dense
+
+
+def leaves(tree):
+    """The tensors of a nested parameter dict."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at magnitude |x| (8 significant bits)."""
+    return float(2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7))
+
+
+def first_argmax(torch, x):
+    """Index of the first maximum along the last axis (ties: lowest id)."""
+    from repro_torch.core.retrieval import topk_desc
+    flat = x.reshape(-1, x.shape[-1])
+    return topk_desc(flat, 1)[1][:, 0].reshape(x.shape[:-1])
+
+
+def teacher_forced(torch, model, params, batch, tokens, capacity):
+    """Logits (B, T, V_padded) of the prefill and of a decode step per
+    given token: tokens[:, t] is fed after the prefill's pick t."""
+    logits0, cache = model.prefill(params, batch, capacity)
+    out = [logits0[:, 0]]
+    for t in range(tokens.shape[1] - 1):
+        logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1])
+        out.append(logits[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def sdpa_call(torch, q, k, v, length):
+    """The yardstick: one scaled_dot_product_attention over the same cache
+    (q (B,Hkv,G,hd) -> (B,H,1,hd); K/V viewed as (B,Hkv,S,hd)), positions
+    <= length.  Never on the port's path."""
+    import torch.nn.functional as F
+    b, hkv, g, hd = q.shape
+    s = k.shape[1]
+    qs = q.reshape(b, hkv * g, 1, hd)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    mask = None
+    if int(length) < s - 1:
+        mask = (torch.arange(s, device=q.device) <= length)[None, None, None]
+    try:
+        return lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    except TypeError:                       # torch without enable_gqa
+        ke = ks.repeat_interleave(g, dim=1)
+        ve = vs.repeat_interleave(g, dim=1)
+        return lambda: F.scaled_dot_product_attention(qs, ke, ve,
+                                                      attn_mask=mask)
+
+
+def decode_row(torch, name, q, k, v, length, launches, reps, graphed):
+    """A kernels-line entry for decode_attention on (q, k, v, length); the
+    kernel, its plain version and SDPA timed alike, in a CUDA graph when
+    ``graphed`` (microsecond calls), else by events around eager calls."""
+    from repro_torch.kernels import decode_attention as da
+    b, hkv, g, hd = q.shape
+    n = int(length) + 1
+    got = da.decode_attention(q, k, v, length)
+    want = da.decode_attention_plain(q, k, v, length)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    elt = k.element_size()
+    n_bytes = 2 * b * n * hkv * hd * elt + 2 * q.numel() * q.element_size()
+    flops = 4.0 * b * hkv * g * hd * n
+    rate = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+    sdpa = sdpa_call(torch, q, k, v, length)
+    lib_err = float((sdpa().reshape(q.shape).float() - want.float()).abs().max())
+
+    def timed(fn, n):
+        return graph_ms(torch, fn) if graphed else time_ms(torch, fn, n)
+
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention.py:77",
+           "launches": launches, "max_abs_err": err,
+           "ms": timed(lambda: da.decode_attention(q, k, v, length), reps),
+           "plain_ms": timed(lambda: da.decode_attention_plain(
+               q, k, v, length), 3),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": timed(sdpa, reps)}
+    eager = time_ms(torch, lambda: da.decode_attention(q, k, v, length),
+                    reps)
+    print(f"{name}: B {b} Hkv {hkv} G {g} hd {hd} S {k.shape[1]} length "
+          f"{int(length)} {q.dtype}, timed "
+          f"{'in a CUDA graph' if graphed else 'by events'}: kernel "
+          f"{row['ms']:.4f} ms (eager call {eager:.4f} ms), plain "
+          f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+          f"(max abs diff to plain {lib_err:.3g}), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), kernel vs plain "
+          f"max abs err {err:.3g}")
+    return row, eager
+
+
+def phase_lm(torch, report):
+    """Phase 5: tinyllama-1.1b at full width, bf16, through Engine.generate
+    with the decode_attention kernel; held against the einsum path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import Model
+    from repro_torch.serving import Engine, ServeConfig
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH).with_(use_decode_kernel=True)
+    fail_unless(all(getattr(cfg, k) == v for k, v in LM_SHAPE.items())
+                and cfg.dtype == "bfloat16" and cfg.vocab_padded == 32256,
+                f"{LM_ARCH} config is not the published one")
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                (LM_BATCH, LM_PROMPT))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    eng = Engine(cfg, params, ServeConfig(max_new_tokens=LM_NEW),
+                 capacity=LM_CAPACITY)
+    per_call = cfg.n_layers * (LM_NEW - 1)
+
+    # --- the main path: one warm-up and LM_CALLS timed calls
+    da.decode_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    results, walls = [], []
+    for i in range(1 + LM_CALLS):
+        before = da.decode_attention.launches
+        t0 = time.perf_counter()
+        res = eng.generate(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        fail_unless(da.decode_attention.launches - before == per_call,
+                    f"decode_attention launched "
+                    f"{da.decode_attention.launches - before} times in a "
+                    f"call, not {cfg.n_layers} x {LM_NEW - 1}")
+        results.append(res)
+    launches = da.decode_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for res in results:
+        fail_unless(res.tokens.shape == (LM_BATCH, LM_NEW)
+                    and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all(),
+                    "generated tokens of the wrong shape or range")
+    deterministic = all(np.array_equal(r.tokens, results[0].tokens)
+                        for r in results)
+    steps = np.concatenate([r.step_ms for r in results[1:]])
+    prefill = [r.prefill_ms for r in results[1:]]
+    walls = walls[1:]
+    tok_s = [LM_BATCH * LM_NEW / w for w in walls]
+
+    # --- held against the einsum path, teacher-forced on the kernel's tokens
+    tokens = torch.as_tensor(results[-1].tokens, device=dev).long()
+    plain = Model(cfg.with_(use_decode_kernel=False))
+    lk = teacher_forced(torch, model, params, batch, tokens, LM_CAPACITY)
+    lp = teacher_forced(torch, plain, params, batch, tokens, LM_CAPACITY)
+    lk, lp = lk[..., :cfg.vocab], lp[..., :cfg.vocab]
+    fail_unless(torch.isfinite(lk).all() and torch.isfinite(lp).all(),
+                "non-finite logits")
+    fail_unless(torch.equal(first_argmax(torch, lk), tokens),
+                "teacher-forced kernel-path logits do not reproduce the "
+                "tokens Engine.generate picked")
+    diff = (lk - lp).abs()
+    bf16_tol = LM_BF16_ULPS * bf16_ulp(float(lp.abs().max()))
+    bf16 = {"max_abs_diff": float(diff.max()),
+            "mean_abs_diff": float(diff.mean()),
+            "tolerance": bf16_tol,
+            "max_abs_logit": float(lp.abs().max()),
+            "greedy_agree": float((first_argmax(torch, lp) == tokens)
+                                  .float().mean())}
+    fail_unless(bf16["max_abs_diff"] <= bf16_tol,
+                f"bf16 logits of the kernel path differ from the einsum path "
+                f"by {bf16['max_abs_diff']} > {bf16_tol}")
+    del lk, lp, diff, plain
+
+    # --- the same at f32: equal greedy picks except counted near-ties
+    cfg32 = cfg.with_(dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    res32 = Engine(cfg32, params32, ServeConfig(max_new_tokens=LM_NEW),
+                   capacity=LM_CAPACITY).generate(batch)
+    tok32 = torch.as_tensor(res32.tokens, device=dev).long()
+    lk = teacher_forced(torch, Model(cfg32), params32, batch, tok32,
+                        LM_CAPACITY)[..., :cfg.vocab]
+    lp = teacher_forced(torch, Model(cfg32.with_(use_decode_kernel=False)),
+                        params32, batch, tok32, LM_CAPACITY)[..., :cfg.vocab]
+    fail_unless(torch.equal(first_argmax(torch, lk), tok32),
+                "teacher-forced f32 kernel-path logits do not reproduce the "
+                "tokens Engine.generate picked")
+    delta = (lk - lp).abs().amax(dim=-1)                  # (B, T)
+    fail_unless(float(delta.max()) <= LM_F32_TOL,
+                f"f32 logits differ by {float(delta.max())} > {LM_F32_TOL}")
+    top2 = torch.topk(lp, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = first_argmax(torch, lp) != tok32
+    # picks can differ only where the einsum path's top two lie within twice
+    # the two paths' largest logit difference at that step
+    near_tie = gap <= 2 * delta
+    fail_unless(not bool((differ & ~near_tie).any()),
+                "f32 greedy picks differ on a step that is not a near-tie")
+    f32 = {"max_abs_diff": float(delta.max()), "tolerance": LM_F32_TOL,
+           "steps": int(tok32.numel()), "picks_differ": int(differ.sum()),
+           "near_tie_steps": int(near_tie.sum()),
+           "near_tie_steps_that_differ": int((differ & near_tie).sum())}
+    del lk, lp, params32
+
+    # --- decode_attention at this path's shape, on the live cache
+    _, cache = model.prefill(params, batch, LM_CAPACITY)
+    q = torch.randn((LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.hd), generator=torch.Generator(dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    last = LM_PROMPT + LM_NEW - 2                      # the last step's slot
+    length = torch.tensor(last, dtype=torch.int32, device=dev)
+    kc, vc = cache["k"][0], cache["v"][0]
+    kc[:, LM_PROMPT:] = torch.randn_like(kc[:, LM_PROMPT:])
+    vc[:, LM_PROMPT:] = torch.randn_like(vc[:, LM_PROMPT:])
+    row, eager_ms = decode_row(torch, "decode_attention", q, kc, vc, length,
+                               launches, 50, graphed=True)
+    # the kernel's share of a step: its 22 calls in device time, and as
+    # eager calls (host launch included), as the step makes them
+    share = cfg.n_layers * row["ms"] / float(np.percentile(steps, 50))
+    share_eager = cfg.n_layers * eager_ms / float(np.percentile(steps, 50))
+    del cache, kc, vc
+
+    lm = {"arch": LM_ARCH, "params": n_params, "dtype": cfg.dtype,
+          "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+          "capacity": LM_CAPACITY, "init_s": init_s,
+          "prefill_ms": prefill, "decode_step_ms": steps.tolist(),
+          "decode_step_p50_ms": float(np.percentile(steps, 50)),
+          "decode_step_p99_ms": float(np.percentile(steps, 99)),
+          "tokens_per_s": tok_s, "generate_wall_s": walls,
+          "decode_attention_share_of_step": share,
+          "decode_attention_eager_share_of_step": share_eager,
+          "peak_device_memory_gb": peak_gb, "deterministic": deterministic,
+          "launches": {"decode_attention": launches},
+          "bf16_vs_einsum": bf16, "f32_vs_einsum": f32}
+    report["lm"] = lm
+    print(f"lm: {LM_ARCH} ({n_params} params, bf16), batch {LM_BATCH}, "
+          f"prompt {LM_PROMPT}, {LM_NEW} new tokens, capacity {LM_CAPACITY}: "
+          f"prefill {np.median(prefill):.2f} ms, decode step p50 "
+          f"{lm['decode_step_p50_ms']:.3f} ms p99 "
+          f"{lm['decode_step_p99_ms']:.3f} ms, "
+          f"{np.median(tok_s):.1f} tokens/s, decode_attention "
+          f"{share:.1%} of a step in device time ({share_eager:.1%} as "
+          f"eager calls), peak device memory {peak_gb:.2f} GB, "
+          f"decode_attention launches {launches} ({per_call} per call)")
+    print(f"lm: bf16 logits vs einsum path: max abs diff "
+          f"{bf16['max_abs_diff']:.4g} (tolerance {bf16_tol:.4g}), mean "
+          f"{bf16['mean_abs_diff']:.3g}, greedy picks agree on "
+          f"{bf16['greedy_agree']:.4f} of steps; f32: max abs diff "
+          f"{f32['max_abs_diff']:.3g}, picks differ on "
+          f"{f32['picks_differ']} of {f32['steps']} steps, all near-ties "
+          f"({f32['near_tie_steps']} near-tie steps)")
+    big = LM_BATCH * 16                       # decode_32k: batch 128
+    k32 = torch.randn((big, 32768, cfg.n_kv_heads, cfg.hd), device=dev,
+                      dtype=torch.bfloat16)
+    v32 = torch.randn_like(k32)
+    q32 = torch.randn((big,) + q.shape[1:], device=dev, dtype=torch.bfloat16)
+    row32, _ = decode_row(torch, "decode_attention@decode_32k", q32, k32,
+                          v32, torch.tensor(32767, dtype=torch.int32,
+                                            device=dev),
+                          launches, 10, graphed=False)
+    del k32, v32, q32, model, params, eng
+    torch.cuda.empty_cache()
+    return [row, row32]
+
+
+def phase_gam_head(torch, report):
+    """Phase 5b: the GAM LM head on a narrow tinyllama-shaped model at the
+    full vocab (k = d_model = 512), through Engine(use_gam_head=True)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.retrieval import masked_topk
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import gam_score as gs
+    from repro_torch.kernels import tess_project as tp
+    from repro_torch.models import Model
+    from repro_torch.serving import Engine, ServeConfig
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH).with_(use_decode_kernel=True, **GAM_LM)
+    params = Model(cfg).init(1)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab,
+                                                (LM_BATCH, GAM_PROMPT))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    capacity = GAM_PROMPT + GAM_NEW + 8
+    sc = ServeConfig(max_new_tokens=GAM_NEW, use_gam_head=True,
+                     gam_threshold=1.5, gam_min_overlap=2)
+    for fn in (tp.tess_project, gs.gam_score, da.decode_attention):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, sc, capacity=capacity)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res = eng.generate(batch)
+    torch.cuda.synchronize()
+    launches = {"tess_project": tp.tess_project.launches,
+                "gam_score": gs.gam_score.launches,
+                "decode_attention": da.decode_attention.launches}
+    fail_unless(launches["tess_project"] > 0 and launches["gam_score"] > 0,
+                f"the GAM head's kernels did not launch: {launches}")
+    fail_unless(launches["decode_attention"] == cfg.n_layers * (GAM_NEW - 1),
+                "decode_attention launches on the GAM-head path")
+    head = eng.gam_head
+    fail_unless(head.cfg.k == cfg.d_model and head.raw_embed.shape[0]
+                == cfg.vocab, "the GAM head does not index the full vocab")
+
+    # each step's ids equal the dense oracle on the same masks, teacher-forced
+    model = eng.model
+    tokens = torch.as_tensor(res.tokens, device=dev).long()
+    _, cache = model.prefill(params, batch, capacity)
+    scored, tf_agree = [], []
+    exact_logits_fn = Model(cfg)
+    for t in range(GAM_NEW - 1):
+        hidden, cache = model.decode_step(params, cache, tokens[:, t:t + 1],
+                                          return_hidden=True)
+        h = hidden[:, 0]
+        vals, ids, mask = head.topk(h, sc.kappa)
+        o_vals, o_ids = masked_topk(h.float(), head.raw_embed, mask, sc.kappa)
+        fail_unless(torch.equal(ids, o_ids.long()),
+                    f"step {t}: GAM-head ids differ from masked_topk")
+        fail_unless(torch.equal(ids[:, 0], tokens[:, t + 1]),
+                    f"step {t}: Engine.generate did not serve the head's pick")
+        exact = exact_logits_fn._logits(params, hidden)[:, 0, :cfg.vocab]
+        tf_agree.append(float((first_argmax(torch, exact) == ids[:, 0])
+                              .float().mean()))
+        scored.append(int(mask.sum()))
+    exact_res = Engine(cfg, params, ServeConfig(max_new_tokens=GAM_NEW),
+                       capacity=capacity).generate(batch)
+    agree = float((exact_res.tokens == res.tokens).mean())
+
+    # the head's kernels at this path's shapes, against their plain versions
+    norm = head.embed                                   # unit vocab rows
+    zt = torch.where(norm.abs() >= head.cfg.threshold, norm, 0.0).contiguous()
+    pat, a = tp.tess_project(zt)
+    pat_p, a_p = tp.tess_project_plain(zt)
+    torch.cuda.synchronize()
+    differ = (pat != pat_p).any(dim=1).cpu().numpy()
+    rows_diff = np.nonzero(differ)[0]
+    excused = near_tie_rows(zt[rows_diff].cpu().numpy())
+    fail_unless(excused.all(), f"tess_project (k={cfg.d_model}) rows "
+                f"{rows_diff[~excused][:8]} differ and are not near-ties")
+    same = torch.as_tensor(~differ, device=dev)
+    err_tess = float((a[same] - a_p[same]).abs().max())
+    fail_unless(err_tess == 0.0, "tess_project (wide) a differs")
+    h = torch.randn((LM_BATCH, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(2))
+    mask = head.candidates(h)
+    got = gs.gam_score(h, head.raw_embed, mask)
+    want = gs.gam_score_plain(h, head.raw_embed, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    err_score = float((got - want).abs().max())
+    f = 4
+    v, k = zt.shape
+    rows = [
+        {"name": "tess_project@k512", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/tess_project.cu",
+         "replaces": "src/repro/kernels/tess_project.py:57",
+         "launches": launches["tess_project"], "max_abs_err": err_tess,
+         "ms": time_ms(torch, lambda: tp.tess_project(zt), 20),
+         "plain_ms": time_ms(torch, lambda: tp.tess_project_plain(zt), 3)},
+        {"name": "gam_score@lm_head", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gam_score.cu",
+         "replaces": "src/repro/kernels/gam_score.py:60",
+         "launches": launches["gam_score"], "max_abs_err": err_score,
+         "ms": time_ms(torch, lambda: gs.gam_score(h, head.raw_embed, mask),
+                       20),
+         "plain_ms": time_ms(torch, lambda: gs.gam_score_plain(
+             h, head.raw_embed, mask), 3)},
+    ]
+    for row, (n_bytes, flops) in zip(rows, [
+            (v * k * (f + 1 + f), 3 * k * v),
+            (LM_BATCH * k * f + v * k * f + LM_BATCH * v * (1 + f),
+             2 * k * int(mask.sum()))]):
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        row.update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    gam = {"config": GAM_LM, "vocab": cfg.vocab, "p": head.cfg.p,
+           "table_bytes": head.index.table.numel() * 4,
+           "bitset_bytes": (head.retriever._retrieve_meta.item_bits_t.numel()
+                            * 4),
+           "build_s": build_s, "launches": launches,
+           "n_scored_vocab": res.n_scored_vocab,
+           "discard_frac": res.discard_frac,
+           "teacher_forced_pick_agree_exact": float(np.mean(tf_agree)),
+           "free_running_token_agree_exact": agree,
+           "tess_project_near_tie_rows": int(differ.sum()),
+           "prefill_ms": res.prefill_ms, "step_ms": res.step_ms}
+    report["gam_head"] = gam
+    print(f"gam head: {LM_ARCH} narrowed to {GAM_LM} at vocab {cfg.vocab} "
+          f"(p = {head.cfg.p}, table {gam['table_bytes'] / 1e9:.2f} GB, "
+          f"bitsets {gam['bitset_bytes'] / 1e9:.2f} GB, built in "
+          f"{build_s:.1f} s): {res.n_scored_vocab:.1f} vocab rows scored per "
+          f"step, discard fraction {res.discard_frac:.4f}, head pick = exact "
+          f"pick on {gam['teacher_forced_pick_agree_exact']:.4f} of "
+          f"teacher-forced steps, free-running tokens agree with the exact "
+          f"head on {agree:.4f}; launches {launches}; tess_project near-tie "
+          f"rows {int(differ.sum())} of {v}")
+    del eng, head, params
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -400,8 +873,24 @@ def main() -> int:
     err_retrieve_q = float(np.abs(gv - wv).max())
     print(f"gam_retrieve_q vs plain: rows/counts/skip exact, max ulp "
           f"{max_ulp(gv, wv)}")
+    # a pool past the shared-memory lists: kappa-lists in global memory
+    wqargs = (u0, uq_tau, uq_mask, qmeta, WIDE_POOL)
+    got_w = gr.gam_retrieve_q(*wqargs, **kw)
+    torch.cuda.synchronize()
+    want_w = gr.gam_retrieve_q_plain(*wqargs, **kw)
+    torch.cuda.synchronize()
+    for name in ("rows", "blk_counts", "skipped"):
+        fail_unless(torch.equal(getattr(got_w, name), getattr(want_w, name)),
+                    f"gam_retrieve_q at pool {WIDE_POOL} {name} differ from "
+                    "the plain version")
+    fail_unless(max_ulp(got_w.vals.cpu().numpy(),
+                        want_w.vals.cpu().numpy()) <= ULP,
+                f"gam_retrieve_q at pool {WIDE_POOL} scores beyond 4 ulp")
+    print(f"gam_retrieve_q vs plain at pool {WIDE_POOL} (global-memory "
+          "lists): rows/counts/skip exact")
+    del got_w, want_w
 
-    wide = gr.GAM_RETRIEVE_MAX_KAPPA
+    wide = gr.GAM_RETRIEVE_SMEM_KAPPA
     pool_miss, wide_miss, agree, recall_q = 0, 0, [], []
     gaps, own_err, both_err = [], [], []
     for i, users in enumerate(reqs[1:]):
@@ -557,15 +1046,25 @@ def main() -> int:
             "max_abs_err": err, "ms": time_ms(torch, kern, 20),
             "plain_ms": time_ms(torch, plain, 3), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
-    report["kernels"] = kernels
     # the exact re-rank is torch code, not a kernel: its share of a request
     report["int8"]["rerank_ms"] = time_ms(
         torch, lambda: gr.rerank_pool(got_q, u0, rq._items_dev, KAPPA), 20)
-    # the int8 kernel's time against its pool width (kappa-list insertions)
+    # the int8 kernel's time against its pool width (kappa-list insertions);
+    # past the shared-memory lists (pool > 128) they live in global memory
     report["int8"]["kernel_ms_by_pool"] = {
         w: time_ms(torch, lambda w=w: gr.gam_retrieve_q(
             u0, uq_tau, uq_mask, qmeta, w, **kw), 20)
-        for w in (KAPPA, pool, wide)}
+        for w in (KAPPA, pool, wide, WIDE_POOL)}
+    print("int8: gam_retrieve_q ms by pool width: " + ", ".join(
+        f"{w}: {ms:.4f}" for w, ms in
+        report["int8"]["kernel_ms_by_pool"].items()))
+    del r, rq, brute, got, got_q, masks0, items_t, zt
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 5. / 5b. LM serving
+    kernels += phase_lm(torch, report)
+    kernels += phase_gam_head(torch, report)
+    report["kernels"] = kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()

@@ -40,6 +40,14 @@
 //     only when it beats the current kappa-th entry, one lane at a time under
 //     a ballot, so the list stays sorted.  The count of each
 //     (query, block) is written by the one warp that owns it, with no atomics.
+//     Past the shared-memory widths (kappa > SMEM_KAPPA, k > SMEM_K) the
+//     kernel is instantiated without them: the kappa-list is kept in place
+//     in the warp's slice of the global part_s/part_r output (lane 0 inserts,
+//     __syncwarp orders its stores before the other lanes read the kappa-th
+//     entry), and the query row is read from global memory (each lane the
+//     same address, so one broadcast load through L1).  Both are slower and
+//     serve any kappa and k; the shared-memory instantiation is the fast
+//     path and its code is unchanged.
 //  3. merge_kernel: one block per query merges the per-split sorted lists.
 //     An entry's final position is its own index plus, for every other split,
 //     the number of entries there that beat it (a binary search).  The order
@@ -61,6 +69,8 @@
 #include <stdint.h>
 
 #define WARPS 8
+#define SMEM_KAPPA 128   // widest kappa-list kept in shared memory
+#define SMEM_K 1024      // widest query row staged in shared memory
 #define FULL_MASK 0xffffffffu
 #define NEG_SCORE (-1e30f)
 
@@ -96,7 +106,9 @@ __device__ __forceinline__ float decode(int8_t v, float scale) {
   return __fmul_rn((float)v, scale);
 }
 
-template <typename T>
+// U_SMEM: the query row is staged in shared memory; L_SMEM: the kappa-list
+// lives in shared memory (else in place in part_s/part_r).
+template <typename T, bool U_SMEM, bool L_SMEM>
 __global__ void retrieve_kernel(
     const float* __restrict__ users, const T* __restrict__ factors,
     const float* __restrict__ scales, const int32_t* __restrict__ qbits,
@@ -111,10 +123,18 @@ __global__ void retrieve_kernel(
   const int lane = threadIdx.x % 32;
   const int qq = blockIdx.x * WARPS + warp;
   if (qq >= q) return;
-  float* u = smem + warp * (k + 2 * kappa);
-  float* ls = u + k;
-  int* lr = (int*)(ls + kappa);
-  for (int d = lane; d < k; d += 32) u[d] = users[(int64_t)qq * k + d];
+  const int split = blockIdx.y;
+  const int64_t out = ((int64_t)split * q + qq) * kappa;
+  float* wsm = smem + warp * ((U_SMEM ? k : 0) + (L_SMEM ? 2 * kappa : 0));
+  float* ls = L_SMEM ? wsm + (U_SMEM ? k : 0) : part_s + out;
+  int* lr = L_SMEM ? (int*)(ls + kappa) : part_r + out;
+  const float* u;
+  if (U_SMEM) {
+    for (int d = lane; d < k; d += 32) wsm[d] = users[(int64_t)qq * k + d];
+    u = wsm;
+  } else {
+    u = users + (int64_t)qq * k;
+  }
   for (int t = lane; t < kappa; t += 32) {
     ls[t] = NEG_SCORE;
     lr[t] = -1;
@@ -122,7 +142,6 @@ __global__ void retrieve_kernel(
   __syncwarp();
   float ts = NEG_SCORE;
   int tr = -1;
-  const int split = blockIdx.y;
   const int b0 = split * blocks_per_split;
   const int b1 = min(nb, b0 + blocks_per_split);
   const int32_t* qb = qbits + (int64_t)qq * words;
@@ -181,11 +200,12 @@ __global__ void retrieve_kernel(
     }
     if (lane == 0) counts[(int64_t)qq * nb + b] = cnt;
   }
-  __syncwarp();
-  const int64_t out = ((int64_t)split * q + qq) * kappa;
-  for (int t = lane; t < kappa; t += 32) {
-    part_s[out + t] = ls[t];
-    part_r[out + t] = lr[t];
+  if (L_SMEM) {
+    __syncwarp();
+    for (int t = lane; t < kappa; t += 32) {
+      part_s[out + t] = ls[t];
+      part_r[out + t] = lr[t];
+    }
   }
 }
 
@@ -250,13 +270,27 @@ static int launch(const void* users, const void* factors, const void* scales,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((q + WARPS - 1) / WARPS, splits);
-  size_t smem = (size_t)WARPS * (k + 2 * kappa) * sizeof(float);
-  retrieve_kernel<T><<<grid, WARPS * 32, smem, st>>>(
-      (const float*)users, (const T*)factors, (const float*)scales,
-      (const int32_t*)qbits, (const int32_t*)item_bits_t,
-      (const int8_t*)spill8, (const int8_t*)alive8, (const uint8_t*)skip,
-      (float*)part_s, (int32_t*)part_r, (int32_t*)counts, q, k, words, n_pad,
-      bn, nb, bq, kappa, min_overlap, blocks_per_split);
+  const bool u_smem = k <= SMEM_K;
+  const bool l_smem = kappa <= SMEM_KAPPA;
+  size_t smem = (size_t)WARPS * ((u_smem ? k : 0) + (l_smem ? 2 * kappa : 0))
+                * sizeof(float);
+#define RETRIEVE_LAUNCH(U, L)                                                 \
+  retrieve_kernel<T, U, L><<<grid, WARPS * 32, smem, st>>>(                   \
+      (const float*)users, (const T*)factors, (const float*)scales,           \
+      (const int32_t*)qbits, (const int32_t*)item_bits_t,                     \
+      (const int8_t*)spill8, (const int8_t*)alive8, (const uint8_t*)skip,     \
+      (float*)part_s, (int32_t*)part_r, (int32_t*)counts, q, k, words, n_pad, \
+      bn, nb, bq, kappa, min_overlap, blocks_per_split)
+  if (u_smem && l_smem) {
+    RETRIEVE_LAUNCH(true, true);
+  } else if (u_smem) {
+    RETRIEVE_LAUNCH(true, false);
+  } else if (l_smem) {
+    RETRIEVE_LAUNCH(false, true);
+  } else {
+    RETRIEVE_LAUNCH(false, false);
+  }
+#undef RETRIEVE_LAUNCH
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<q, 128, 0, st>>>((const float*)part_s,

@@ -32,7 +32,7 @@ from repro_torch.compress.quantize import dequantize_int8, quantize_int8
 from repro_torch.kernels import _build
 from repro_torch.kernels.gam_score import NEG, dot_plain, fma_dot
 
-__all__ = ["GAM_RETRIEVE_MAX_K", "GAM_RETRIEVE_MAX_KAPPA", "GamRetrieveResult",
+__all__ = ["GAM_RETRIEVE_SMEM_K", "GAM_RETRIEVE_SMEM_KAPPA", "GamRetrieveResult",
            "ROW_CAPACITY", "RetrievalMeta", "RowCapacityError",
            "TOPK_EMPTY_ROW", "build_retrieval_meta", "effective_bq",
            "expand_tile_skips", "export_topk", "gam_retrieve",
@@ -46,11 +46,12 @@ ROW_CAPACITY = 1 << 30
 #: Exported sentinel for empty top-kappa slots (int32 max).
 TOPK_EMPTY_ROW = np.int32(np.iinfo(np.int32).max)
 
-#: Largest kappa the kernel's shared-memory lists take (room for the int8
-#: path's re-rank pool of kappa * rerank_factor).
-GAM_RETRIEVE_MAX_KAPPA = 128
-#: Widest factor row the kernel stages in shared memory.
-GAM_RETRIEVE_MAX_K = 1024
+#: Largest kappa (or int8 re-rank pool) whose per-warp lists the kernel keeps
+#: in shared memory, its fast path; wider lists live in global memory.
+GAM_RETRIEVE_SMEM_KAPPA = 128
+#: Widest query row the kernel stages in shared memory, its fast path;
+#: wider rows are read from global memory.
+GAM_RETRIEVE_SMEM_K = 1024
 
 # item elements per chunk of the plain version (bounds its (Q, chunk) temporaries)
 _PLAIN_CHUNK = 1 << 24
@@ -352,13 +353,9 @@ def _check_common(users, q_tau, q_mask, meta: RetrievalMeta, kappa: int,
     if dev.type != "cuda":
         raise ValueError(f"{what} kernel needs CUDA tensors, got {dev}")
     q, k = users.shape
-    if not 1 <= kappa <= GAM_RETRIEVE_MAX_KAPPA:
-        raise ValueError(f"{what} supports 1 <= kappa <= "
-                         f"{GAM_RETRIEVE_MAX_KAPPA} (GAM_RETRIEVE_MAX_KAPPA), "
-                         f"got {kappa}")
-    if not 1 <= k <= GAM_RETRIEVE_MAX_K or q < 1:
-        raise ValueError(f"{what} supports 1 <= k <= "
-                         f"{GAM_RETRIEVE_MAX_K} and Q >= 1, got {(q, k)}")
+    if kappa < 1 or k < 1 or q < 1:
+        raise ValueError(f"{what} needs kappa, k and Q >= 1, got "
+                         f"{(kappa, k, q)}")
     _check("users", users, torch.float32, (q, k), dev)
     _check("q_tau", q_tau, torch.int32, (q, k), dev)
     _check("q_mask", q_mask, torch.bool, (q, k), dev)
@@ -436,8 +433,8 @@ def gam_retrieve_q(users, q_tau, q_mask, meta: RetrievalMeta, pool: int, *,
                    bq: int = 32) -> GamRetrieveResult:
     """Launch the CUDA kernel's int8 entry: as :func:`gam_retrieve`, scoring
     on ``meta.factors_q`` (n_pad, k) int8 decoded with ``meta.scales``
-    (1, n_blocks) f32, keeping the top ``pool`` (at most
-    :data:`GAM_RETRIEVE_MAX_KAPPA`) for :func:`rerank_pool`."""
+    (1, n_blocks) f32, keeping the top ``pool`` for :func:`rerank_pool`
+    (in shared memory up to :data:`GAM_RETRIEVE_SMEM_KAPPA` rows)."""
     pool = int(pool)
     _check_common(users, q_tau, q_mask, meta, pool, "gam_retrieve_q")
     if meta.quantize != "int8":

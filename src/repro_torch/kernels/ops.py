@@ -6,11 +6,12 @@ the kernel to the plain version.  Counterpart of ``repro.kernels.ops``.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import gam_retrieve as _gr
 from repro_torch.kernels import gam_score as _gs
 from repro_torch.kernels import tess_project as _tp
 
-__all__ = ["gam_retrieve", "gam_score", "tess_project"]
+__all__ = ["decode_attention", "gam_retrieve", "gam_score", "tess_project"]
 
 
 def _on_cpu(t) -> bool:
@@ -55,3 +56,10 @@ def tess_project(z):
     if _on_cpu(z):
         return _tp.tess_project_plain(z)
     return _tp.tess_project(z)
+
+
+def decode_attention(q, k, v, length):
+    """One-token GQA attention over positions <= length: (B, Hkv, G, hd)."""
+    if _on_cpu(q):
+        return _da.decode_attention_plain(q, k, v, length)
+    return _da.decode_attention(q, k, v, length)

@@ -14,10 +14,15 @@ import torch
 from repro_torch.core.tessellation import ternary_pattern
 from repro_torch.kernels import _build
 
-__all__ = ["TESS_MAX_K", "tess_project", "tess_project_plain"]
+__all__ = ["TESS_MAX_K", "TESS_THREAD_MAX_K", "tess_project",
+           "tess_project_plain"]
 
-#: widest row the kernel takes (its per-thread row buffers)
-TESS_MAX_K = 256
+#: widest row of the one-thread-per-row kernel (its per-thread row buffers);
+#: wider rows take the one-CTA-per-row kernel
+TESS_THREAD_MAX_K = 256
+#: widest row the card takes: the wide kernel's three k-long arrays (12k
+#: bytes) and its 2 KB reduction must fit in 227 KB of shared memory
+TESS_MAX_K = 19200
 
 
 def tess_project_plain(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -28,7 +33,8 @@ def tess_project_plain(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def tess_project(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel: z (B, k) f32 contiguous on the card."""
+    """Launch the CUDA kernel: z (B, k) f32 contiguous on the card; rows
+    wider than ``TESS_THREAD_MAX_K`` take the one-CTA-per-row kernel."""
     if z.device.type != "cuda":
         raise ValueError(f"tess_project kernel needs a CUDA tensor, got {z.device}")
     if z.dtype != torch.float32 or z.dim() != 2 or not z.is_contiguous():
@@ -36,7 +42,10 @@ def tess_project(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                          f"tensor, got {tuple(z.shape)} {z.dtype}")
     b, k = z.shape
     if not 1 <= k <= TESS_MAX_K:
-        raise ValueError(f"tess_project supports 1 <= k <= {TESS_MAX_K}, got {k}")
+        raise ValueError(
+            f"tess_project supports 1 <= k <= {TESS_MAX_K}, got {k}: a row "
+            f"needs 12k = {12 * k} bytes of shared memory and the card "
+            f"gives a block at most 232,448 (rows are not streamed)")
     pat = torch.empty((b, k), dtype=torch.int8, device=z.device)
     a = torch.empty((b, k), dtype=torch.float32, device=z.device)
     lib = _build.library("tess_project")

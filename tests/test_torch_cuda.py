@@ -49,6 +49,58 @@ def test_tess_project_kernel_equals_plain(dev, b, k):
     assert torch.equal(a, want_a)
 
 
+def near_tie_rows(z: np.ndarray, ulp: int = 4) -> np.ndarray:
+    """Rows whose top two float64 scaled running sums of Algorithm 2 are
+    within ``ulp`` f32 ulp: their t* depends on rounding."""
+    az = -np.sort(-np.abs(np.asarray(z, np.float64)), axis=-1)
+    zs = np.cumsum(az, axis=-1) / np.sqrt(np.arange(1, az.shape[-1] + 1))
+    top2 = -np.sort(-zs, axis=-1)[:, :2]
+    return top2[:, 0] - top2[:, 1] <= ulp * np.spacing(
+        top2[:, 0].astype(np.float32))
+
+
+@pytest.mark.parametrize("b,k", [(7, 257), (64, 300), (3, 1000), (2, 4100)])
+def test_tess_project_wide_kernel_equals_plain(dev, b, k):
+    """The one-CTA-per-row kernel past TESS_THREAD_MAX_K (its first width,
+    and rows wider than the 48 KB default shared memory): bit for bit as the
+    plain version."""
+    z = torch.from_numpy(np.random.default_rng(b * k).normal(size=(b, k))
+                         .astype(np.float32)).to(dev)
+    z[:, k // 2:] *= (z[:, k // 2:].abs() > 0.5)        # thresholded zeros
+    z[0] = 0.0                                          # an all-zero row
+    pat, a = tp.tess_project(z)
+    torch.cuda.synchronize()
+    want_pat, want_a = tp.tess_project_plain(z)
+    assert torch.equal(pat, want_pat)
+    assert torch.equal(a, want_a)
+
+
+@pytest.mark.parametrize("k", [512, 2048])
+def test_tess_project_wide_rows_equal_plain_except_near_ties(dev, k):
+    """32,000 unit rows (the GAM head maps the vocab at k = d_model): equal
+    to the plain version except rows certified as near-ties, counted."""
+    z = np.random.default_rng(k).normal(size=(32000, k)).astype(np.float32)
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    zt = torch.from_numpy(z).to(dev)
+    before = tp.tess_project.launches
+    pat, a = tp.tess_project(zt)
+    torch.cuda.synchronize()
+    assert tp.tess_project.launches == before + 1
+    want_pat, want_a = tp.tess_project_plain(zt)
+    diff = (pat != want_pat).any(dim=1).cpu().numpy()
+    rows = np.nonzero(diff)[0]
+    assert near_tie_rows(z[rows]).all(), rows[:8]
+    same = torch.from_numpy(~diff).to(dev)
+    assert torch.equal(a[same], want_a[same])
+    print(f"k={k}: {rows.size} near-tie rows of 32000")
+
+
+def test_tess_project_rejects_rows_past_shared_memory(dev):
+    z = torch.zeros((2, tp.TESS_MAX_K + 1), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        tp.tess_project(z)
+
+
 @pytest.mark.parametrize("q,n,k", [(4, 64, 8), (128, 512, 16), (37, 1000, 10),
                                    (1, 2048, 64), (130, 513, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -109,15 +161,46 @@ def test_gam_retrieve_kernel_equals_plain(dev, n, q, kappa, mo, bucket, bn, bq):
             assert torch.equal(g, w)
 
 
-def test_gam_retrieve_kernel_rejects_large_kappa(dev):
-    items = torch.from_numpy(unit_factors(64, 16, 1)).to(dev)
-    cfg = GamConfig(k=16)
+# past the shared-memory fast path: kappa-lists and/or query rows in global
+# memory (kappa > GAM_RETRIEVE_SMEM_KAPPA, k > GAM_RETRIEVE_SMEM_K)
+WIDE_CASES = [
+    # n, q, kappa, k, scheme, mo, bn, bq
+    (5000, 37, 200, 16, "parse_tree", 1, 256, 32),
+    (3000, 9, 512, 16, "parse_tree", 0, 128, 8),
+    (300, 20, 10, 1536, "one_hot", 2, 64, 8),
+    (700, 11, 200, 1536, "one_hot", 1, 128, 8),
+]
+
+
+def _wide_catalog(dev, n, q, k, scheme, bn, quantize="none"):
+    cfg = GamConfig(k=k, scheme=scheme, threshold=0.5 / k ** 0.5)
+    items = torch.from_numpy(unit_factors(n, k, n + k)).to(dev)
+    users = torch.from_numpy(unit_factors(q, k, n + k + 1)).to(dev)
     tau, vals = sparse_map(items, cfg)
-    meta = gr.build_retrieval_meta(tau, vals != 0, cfg.p, bn=32, device=dev)
-    with pytest.raises(ValueError):
-        gr.gam_retrieve(items[:2].contiguous(), items, tau[:2].contiguous(),
-                        (vals[:2] != 0).contiguous(), meta,
-                        gr.GAM_RETRIEVE_MAX_KAPPA + 1)
+    q_tau, q_vals = sparse_map(users, cfg)
+    _, _, spill = build_segment(tau.cpu().numpy(), cfg.p, 64,
+                                (vals != 0).cpu().numpy())
+    meta = gr.build_retrieval_meta(tau, vals != 0, cfg.p, spill_rows=spill,
+                                   bn=bn, factors=items, quantize=quantize,
+                                   device=dev)
+    return items, users, q_tau, q_vals != 0, meta
+
+
+@pytest.mark.parametrize("n,q,kappa,k,scheme,mo,bn,bq", WIDE_CASES)
+def test_gam_retrieve_kernel_equals_plain_past_shared_memory(
+        dev, n, q, kappa, k, scheme, mo, bn, bq):
+    """Replaces the test that the kernel refused kappa > 128: any kappa and
+    k now run, bit for bit as the plain version."""
+    items, users, q_tau, q_mask, meta = _wide_catalog(dev, n, q, k, scheme,
+                                                      bn)
+    assert kappa > gr.GAM_RETRIEVE_SMEM_KAPPA or k > gr.GAM_RETRIEVE_SMEM_K
+    got = gr.gam_retrieve(users, items, q_tau, q_mask, meta, kappa,
+                          min_overlap=mo, bq=bq)
+    torch.cuda.synchronize()
+    want = gr.gam_retrieve_plain(users, items, q_tau, q_mask, meta, kappa,
+                                 min_overlap=mo, bq=bq)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_gam_device_retriever_on_card_equals_cpu(dev):
@@ -166,11 +249,23 @@ def test_int8_slab_on_card_equals_cpu_slab(dev):
                        meta_cpu.scales.view(torch.int32))
 
 
-def test_gam_retrieve_q_kernel_rejects_wide_pool(dev):
-    _, users, q_tau, q_vals, meta = _catalog(dev, 600, 3, 64, 32, "int8")
-    with pytest.raises(ValueError, match="GAM_RETRIEVE_MAX_KAPPA"):
-        gr.gam_retrieve_q(users, q_tau, q_vals != 0, meta,
-                          gr.GAM_RETRIEVE_MAX_KAPPA + 1)
+@pytest.mark.parametrize("pool", [256, 512])
+@pytest.mark.parametrize("n,q,_kappa,k,scheme,mo,bn,bq", WIDE_CASES)
+def test_gam_retrieve_q_kernel_equals_plain_wide_pool(
+        dev, pool, n, q, _kappa, k, scheme, mo, bn, bq):
+    """Replaces the test that the int8 kernel refused a pool > 128: pools of
+    256 and 512 (and k = 1536) equal the plain version (rows, counts and
+    skip map exact, scores within 4 ulp)."""
+    _, users, q_tau, q_mask, meta = _wide_catalog(dev, n, q, k, scheme, bn,
+                                                  "int8")
+    pool = min(pool, meta.n_pad)
+    args = (users, q_tau, q_mask, meta, pool)
+    got = gr.gam_retrieve_q(*args, min_overlap=mo, bq=bq)
+    torch.cuda.synchronize()
+    want = gr.gam_retrieve_q_plain(*args, min_overlap=mo, bq=bq)
+    for name in ("rows", "blk_counts", "skipped"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert _max_ulp(got.vals, want.vals) <= 4
 
 
 def test_int8_gam_device_retriever_on_card_equals_cpu(dev):
@@ -187,3 +282,79 @@ def test_int8_gam_device_retriever_on_card_equals_cpu(dev):
     np.testing.assert_array_equal(on_card.ids, on_cpu.ids)
     np.testing.assert_array_equal(on_card.scores, on_cpu.scores)
     assert on_card.explain == on_cpu.explain
+
+
+# ------------------------------------------------------- decode_attention
+
+DECODE_SHAPES = [
+    # b, hkv, g, hd, s: the reference suite's shapes, the slice's serving
+    # shape (tinyllama-1.1b, batch 8, capacity 1064), the decode_32k widths
+    # at a smaller batch, an odd head dim (scalar loads) and wide groups
+    (1, 1, 1, 32, 64), (2, 2, 4, 64, 128), (3, 1, 8, 64, 100),
+    (2, 4, 2, 128, 257), (1, 2, 16, 64, 1024), (8, 4, 8, 64, 1064),
+    (4, 4, 8, 64, 32768), (2, 3, 6, 100, 333), (2, 1, 16, 256, 520),
+    (1, 1, 48, 256, 130), (2, 2, 3, 8, 7),
+]
+
+
+def _decode_inputs(dev, b, hkv, g, hd, s, dtype, seed):
+    r = np.random.default_rng(seed)
+    mk = (lambda *shape: torch.from_numpy(r.normal(size=shape).astype(
+        np.float32)).to(dev, dtype))
+    return mk(b, hkv, g, hd), mk(b, s, hkv, hd), mk(b, s, hkv, hd)
+
+
+@pytest.mark.parametrize("b,hkv,g,hd,s", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_equals_plain(dev, b, hkv, g, hd, s, dtype):
+    """f32 within 1e-5; bf16 within 2e-2 (the output is rounded once to
+    bf16, relative step 2^-8, and the kernel's split softmax sums in another
+    order than the plain version)."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _decode_inputs(dev, b, hkv, g, hd, s, dtype, b * s + hd)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for length in (s - 1, s // 2, 0):
+        n_len = torch.tensor(length, dtype=torch.int32, device=dev)
+        before = da.decode_attention.launches
+        got = da.decode_attention(q, k, v, n_len)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == before + 1
+        want = da.decode_attention_plain(q, k, v, n_len)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_decode_attention_kernel_ignores_positions_past_length(dev):
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _decode_inputs(dev, 2, 2, 4, 64, 600, torch.bfloat16, 3)
+    out1 = da.decode_attention(q, k, v, 300)
+    k[:, 301:] = 99.0
+    v[:, 301:] = -99.0
+    out2 = da.decode_attention(q, k, v, 300)
+    assert torch.equal(out1, out2)
+
+
+def test_decode_kernel_model_path_equals_einsum_path(dev):
+    """Reduced tinyllama widened to G = 8 on the card: the decode steps
+    through the kernel equal the reference's einsum path within 1e-4 (f32),
+    and the kernel launches once per layer and step."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import Model
+    cfg = get_reduced_config("tinyllama-1.1b").with_(n_heads=8, n_kv_heads=1,
+                                                     vocab=300)
+    plain, kern = Model(cfg), Model(cfg.with_(use_decode_kernel=True))
+    params = plain.init(0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 300, (4, 20))).to(dev)
+    _, cp = plain.prefill(params, {"tokens": tokens}, 40)
+    _, ck = kern.prefill(params, {"tokens": tokens}, 40)
+    tok = tokens[:, :1]
+    before = da.decode_attention.launches
+    for _ in range(5):
+        lp, cp = plain.decode_step(params, cp, tok)
+        lk, ck = kern.decode_step(params, ck, tok)
+        torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
+        tok = lp[:, 0].argmax(-1, keepdim=True)
+    assert da.decode_attention.launches == before + 5 * cfg.n_layers
