@@ -63,6 +63,49 @@ Phases, each of which fails the run if it fails:
    the same masks; both kernels are held against their plain versions at
    this path's shapes.  Vocab rows scored per step, the discarded fraction
    and the agreement with the exact head are printed.
+6. The service tier: the same catalog, schema and request generator behind
+   ``open_retriever(RetrieverSpec(backend="sharded", n_shards=8,
+   min_overlap=2, kappa=10, batch_size=256, ...), device="cuda")``, posting
+   bucket sized so no shard spills.  12 requests of 256 queries, through
+   ``query`` and through the ``Microbatcher`` in turns, with 8 batches of
+   1,024 fresh + 1,024 rewritten upserts and 512 deletes streamed between
+   them; then a background ``compact(async_=True)`` advanced one slice per
+   request until it swaps; then hot traffic on 4 clusters and a
+   ``repartition`` (at least two bn-groups required); then a 64-row delta
+   and a ``snapshot`` -> ``restore``.  On every request the served ids must
+   equal the dense oracle (the base's ``query_dense_reference`` and
+   ``masked_topk`` over the delta, on the ``gam_score`` kernel), scores
+   within 4 ulp, and ``gam_retrieve`` must launch once per bn-group plus
+   once for a non-empty delta; after the swap and after the repartition the
+   answers must equal a fresh ``gam-device`` build over the catalog bit for
+   bit, the heterogeneous layout the uniform one, and the restored service
+   the live one.  Latency and queries/s come from three timed windows of 100
+   requests each, run back to back and held against the oracle after the
+   window: the uniform layout with the streamed delta through ``query`` and
+   through the ``Microbatcher``, and the repartitioned layout through
+   ``query``.  Each window prints its request p50/p99/max (host clock) and
+   its queries over its wall time; launches per request, the delta size,
+   compaction slices, groups, device bytes and the ``ServiceMetrics``
+   snapshot are printed too.
+6b. The same service under ``quantize="int8", rerank_factor=4,
+   compress_postings=True``: 3 requests, whose served ids must be the exact
+   top kappa of each query's pool and equal the dense oracle wherever the
+   pool covers it; ``gam_retrieve_q`` launches once a request and the f32
+   kernel never.
+7. ``flash_prefill`` and ``gam_coarse`` through ``repro_torch.kernels.ops``
+   at the shapes of ``tests/test_kernels.py`` (f32 and bf16, and S = 100)
+   and at the LM substrate's: ``flash_prefill`` on layer 0's q/k/v of phase
+   5's prefill (B 8, S 1,024, Hkv 4, G 8, hd 64, bf16, and the same q/k/v
+   in f32), also against the model's blockwise attention; ``gam_coarse`` at
+   B 8 on the ternary patterns of tinyllama's unembedding rows (d 2,048,
+   V 32,000) and of phase 5b's (d 512).  Each is held against its plain
+   version (``flash_prefill`` f32 within 2e-5; bf16 within one bf16 step,
+   rtol 2^-7 with an atol of 1e-5, since both sides compute in f32 and
+   round once; ``gam_coarse`` within the rounding bound of two f32 sums of
+   d terms) and timed beside it, its
+   bound and, for ``flash_prefill``, ``scaled_dot_product_attention``
+   (``gam_coarse`` in a CUDA graph, as ``decode_attention`` at the slice's
+   shape).
 Then the ``kernels`` JSON line (every kernel, at each shape above), the
 card's name and power limit, and the result line.
 
@@ -76,6 +119,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -332,7 +376,34 @@ def decode_row(torch, name, q, k, v, length, launches, reps, graphed):
     return row, eager
 
 
-def phase_lm(torch, report):
+def prefill_qkv(torch, cfg, params, batch):
+    """Layer 0's roped q (B, S, H, hd), k and v (B, S, Hkv, hd) of the
+    prefill of ``batch``, as the model's blockwise attention receives them."""
+    from repro_torch.models.attention import _qkv
+    from repro_torch.models.layers import apply_norm, rope
+    from repro_torch.models.transformer import layer_params
+    lp = layer_params(params["blocks"], 0)
+    h = apply_norm(lp["norm1"], params["embed"][batch["tokens"]], cfg)
+    q, k, v = _qkv(lp["attn"], h, cfg)
+    pos = torch.arange(q.shape[1], device=q.device)[None, :]
+    return (rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta), v,
+            cfg)
+
+
+def unembed_patterns(torch, model, params):
+    """(d, V) int8 ternary patterns of the unit unembedding rows, mapped as
+    the GAM head maps them (threshold 1.5 / sqrt(d), Algorithm 2 through
+    the tess_project kernel)."""
+    from repro_torch.kernels import tess_project as tp
+    cfg = model.cfg
+    w = (params["embed"] if cfg.tie_embeddings
+         else params["lm_head"].T)[:cfg.vocab].float()
+    w = w / torch.linalg.vector_norm(w, dim=1, keepdim=True)
+    zt = torch.where(w.abs() >= 1.5 / cfg.d_model ** 0.5, w, 0.0)
+    return tp.tess_project(zt.contiguous())[0].T.contiguous()
+
+
+def phase_lm(torch, report, keep):
     """Phase 5: tinyllama-1.1b at full width, bf16, through Engine.generate
     with the decode_attention kernel; held against the einsum path."""
     from repro_torch.configs import get_config
@@ -495,12 +566,15 @@ def phase_lm(torch, report):
                           v32, torch.tensor(32767, dtype=torch.int32,
                                             device=dev),
                           launches, 10, graphed=False)
-    del k32, v32, q32, model, params, eng
+    del k32, v32, q32
+    keep["prefill"] = prefill_qkv(torch, cfg, params, batch)
+    keep["patterns_d2048"] = unembed_patterns(torch, model, params)
+    del model, params, eng
     torch.cuda.empty_cache()
     return [row, row32]
 
 
-def phase_gam_head(torch, report):
+def phase_gam_head(torch, report, keep):
     """Phase 5b: the GAM LM head on a narrow tinyllama-shaped model at the
     full vocab (k = d_model = 512), through Engine(use_gam_head=True)."""
     from repro_torch.configs import get_config
@@ -629,8 +703,539 @@ def phase_gam_head(torch, report):
           f"teacher-forced steps, free-running tokens agree with the exact "
           f"head on {agree:.4f}; launches {launches}; tess_project near-tie "
           f"rows {int(differ.sum())} of {v}")
+    keep["patterns_d512"] = pat.T.contiguous()
     del eng, head, params
     torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------ the service tier
+
+SVC_SHARDS = 8
+SVC_STREAM = 12                # requests while mutations stream in
+SVC_MUTATE = 8                 # of which this many are followed by mutations
+SVC_FRESH, SVC_REWRITE, SVC_DELETE = 1024, 1024, 512   # rows per mutation
+SVC_SLICE_ROWS = 1 << 18       # compaction map slice
+SVC_TARGET_BLOCKS = 2048       # repartition: blocks a shard is cut into
+SVC_INT8_REQUESTS = 3
+SVC_WINDOW = 100               # requests in each timed window
+DEVICE = "cuda"                # the card; phases 6-7 run nowhere else
+
+
+def service_oracle(torch, r, users):
+    """The dense oracle over the live catalog of a ``sharded`` retriever:
+    the base's ``query_dense_reference`` (posting-table masks, masked_topk on
+    the gam_score kernel) and ``masked_topk`` over the delta with its own
+    table's masks, merged under (score desc, id asc).  -> (scores, ids)."""
+    from repro_torch.core.mapping import sparse_map
+    from repro_torch.core.retrieval import masked_topk
+    from repro_torch.kernels.gam_score import NEG
+    u = torch.as_tensor(users, device=r.device)
+    tau, vals = sparse_map(u, r.spec.cfg)
+    mask = vals != 0
+    b = r.base.query_dense_reference(u, tau, mask, KAPPA)
+    scores = [b.scores]
+    ids = [r.base.rows_to_ids(b.rows, b.scores)]
+    if len(r.delta):
+        dm = r.delta._index.batch_candidate_mask(tau, r.spec.min_overlap,
+                                                 mask)
+        dv, dr = masked_topk(u, torch.as_tensor(r.delta.factors,
+                                                device=r.device), dm,
+                             min(KAPPA, len(r.delta)))
+        dv = dv.cpu().numpy()
+        scores.append(dv)
+        ids.append(np.where(dv <= NEG / 2, -1, r.delta.ids[
+            dr.cpu().numpy().clip(0, len(r.delta) - 1)]))
+    cat_s = np.concatenate(scores, axis=1)
+    cat_i = np.concatenate(ids, axis=1)
+    empty = cat_s <= NEG / 2
+    order = np.lexsort((np.where(empty, 2 ** 62, cat_i), -cat_s),
+                       axis=-1)[:, :KAPPA]
+    top_s = np.take_along_axis(cat_s, order, axis=-1)
+    top_i = np.take_along_axis(cat_i, order, axis=-1)
+    return top_s, np.where(top_s <= NEG / 2, -1, top_i)
+
+
+def rows_to_ids(base, rows, neg):
+    """Global rows of a sharded base (-1 empty) -> catalog ids (-1 empty)."""
+    return base.rows_to_ids(np.where(rows >= 0, rows, 0),
+                            np.where(rows >= 0, 0.0, neg))
+
+
+def check_oracle(torch, r, users, res, what):
+    o_s, o_i = service_oracle(torch, r, users)
+    fail_unless(np.array_equal(res.ids, o_i),
+                f"{what}: served ids differ from the dense oracle")
+    real = o_i >= 0
+    fail_unless(max_ulp(np.where(real, res.scores, 0),
+                        np.where(real, o_s, 0)) <= ULP,
+                f"{what}: served scores beyond 4 ulp of the dense oracle")
+
+
+def same_bits(a, b, what):
+    fail_unless(np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.scores, b.scores), what)
+
+
+def phase_service(torch, report, items, centers, cfg, bucket):
+    """Phase 6: the gam_mf-1M catalog behind the ``sharded`` backend on the
+    card, with streamed mutations, a background compaction, a repartition
+    and a snapshot; every request held against the dense oracle."""
+    from repro_torch.kernels import gam_retrieve as gr
+    from repro_torch.kernels import tess_project as tp
+    from repro_torch.retriever import RetrieverSpec, open_retriever
+    spec = RetrieverSpec(
+        cfg=cfg, backend="sharded", n_shards=SVC_SHARDS,
+        min_overlap=MIN_OVERLAP, kappa=KAPPA, bucket=bucket,
+        delta_bucket=1 << 15, batch_size=BATCH,
+        options=(("compact_slice_rows", SVC_SLICE_ROWS),
+                 ("rebalance_target_blocks", SVC_TARGET_BLOCKS)))
+    t0 = time.perf_counter()
+    r = open_retriever(spec, items=items, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fail_unless(r.base.spills.shape[1] == 0, "the service's shards spill: "
+                "the bucket must hold the longest posting list")
+    dev_bytes = r.base.device_bytes()
+    stream = requests(centers, 64, BATCH, SIGMA, seed=6)
+    rng = np.random.default_rng(7)
+    live = np.arange(N_ITEMS, dtype=np.int64)
+    next_fresh = N_ITEMS
+    counts = {"gam_retrieve": 0, "tess_project": 0}
+    lat = {"stream": [], "compaction": [], "repartitioned": []}
+    windows = {}
+    per_request = []
+    req = iter(stream)
+
+    def serve(users, via_batcher, phase, check=True):
+        """One request of 256 queries, timed on the host clock; the
+        gam_retrieve launches it made must be one per bn-group plus one
+        for a non-empty delta.  ``check``: hold it against the oracle now
+        (a timed window holds its requests after the window)."""
+        before = gr.gam_retrieve.launches
+        t0 = time.perf_counter()
+        if via_batcher:
+            rids = [r.batcher.submit(u) for u in users]   # fires at 256
+            outs = [r.batcher.result(i) for i in rids]
+            fail_unless(all(o is not None and hasattr(o, "ids")
+                            for o in outs), "the microbatcher lost a row")
+            res = types.SimpleNamespace(
+                ids=np.stack([o.ids for o in outs]),
+                scores=np.stack([o.scores for o in outs]))
+        else:
+            res = r.query(users)
+        torch.cuda.synchronize()
+        lat.setdefault(phase, []).append((time.perf_counter() - t0) * 1e3)
+        n = gr.gam_retrieve.launches - before
+        want = len(r.base.metas) + (1 if len(r.delta) else 0)
+        fail_unless(n == want, f"{phase}: gam_retrieve launched {n} times "
+                    f"for a request, not {want} (groups + delta)")
+        per_request.append(n)
+        fail_unless(res.ids.shape == (BATCH, KAPPA), "service result shape")
+        if check:
+            check_oracle(torch, r, users, res, phase)
+        return res
+
+    def window(name, via_batcher, seed):
+        """SVC_WINDOW requests back to back on a fixed layout: each one's
+        latency, and queries/s as all queries over the window's wall time;
+        every answer is held against the oracle once the window ends."""
+        batch = requests(centers, SVC_WINDOW, BATCH, SIGMA, seed=seed)
+        t0 = time.perf_counter()
+        got = [serve(u, via_batcher, name, check=False) for u in batch]
+        wall = time.perf_counter() - t0
+        for users, res in zip(batch, got):
+            check_oracle(torch, r, users, res, name)
+        ms = lat[name]
+        windows[name] = {
+            "requests": len(ms), "wall_s": wall,
+            "qps": BATCH * len(ms) / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(max(ms)),
+            "launches_per_request": per_request[-1]}
+
+    def fresh_device(what, answers):
+        ids, fac = r._catalog_arrays()
+        g = open_retriever(RetrieverSpec(
+            cfg=cfg, backend="gam-device", min_overlap=MIN_OVERLAP,
+            kappa=KAPPA, bucket=bucket), items=fac, ids=ids, device=DEVICE)
+        fail_unless(g.stats()["n_spill"] == 0, "gam-device spills")
+        for users, res in answers:
+            same_bits(res, g.query(users), f"{what}: the service differs "
+                      "from a fresh gam-device build over its catalog")
+
+    # --- the main path: requests, streamed mutations, compaction,
+    # repartition; the counts are read right after it
+    gr.gam_retrieve.launches = tp.tess_project.launches = 0
+    t_stream = time.perf_counter()
+    for i in range(SVC_STREAM):
+        serve(next(req), via_batcher=bool(i % 2), phase="stream")
+        if i < SVC_MUTATE:
+            fresh = np.arange(next_fresh, next_fresh + SVC_FRESH)
+            next_fresh += SVC_FRESH
+            rewrite = rng.choice(live, SVC_REWRITE, replace=False)
+            up_ids = np.concatenate([fresh, rewrite])
+            up = (centers[rng.integers(0, N_CLUSTERS, up_ids.size)]
+                  + SIGMA * rng.normal(size=(up_ids.size, K))
+                  ).astype(np.float32)
+            up /= np.linalg.norm(up, axis=1, keepdims=True)
+            r.upsert(up_ids, up)
+            live = np.union1d(live, fresh)
+            dead = rng.choice(live, SVC_DELETE, replace=False)
+            r.delete(dead)
+            live = np.setdiff1d(live, dead)
+    stream_s = time.perf_counter() - t_stream
+    delta_len = len(r.delta)
+    fail_unless(r.n_items == live.size, "the catalog lost or gained rows")
+    # the uniform layout with the streamed delta, by both routes (the
+    # batcher's block traffic is dropped at the swap: the block count
+    # changes, so it does not dilute the hot traffic the repartition reads)
+    window("uniform+delta via query", via_batcher=False, seed=11)
+    window("uniform+delta via batcher", via_batcher=True, seed=12)
+
+    r.compact(async_=True)
+    slices = 0
+    while r.maintenance_stats()["compaction"]["active"]:
+        serve(next(req), via_batcher=False, phase="compaction")
+        slices += 1
+        fail_unless(slices < 64, "the compaction never swapped")
+    fail_unless(r.generation == 1 and len(r.delta) == 0,
+                "the compaction did not swap in generation 1")
+    check = [next(req) for _ in range(2)]
+    uniform = [(u, r.query(u)) for u in check]
+    fresh_device("after the swap", uniform)
+
+    # hot traffic on a few clusters, through the batcher (its stats feed
+    # the repartitioner's weights), then the skew-aware layout
+    hot = requests(centers[:4], 2, BATCH, SIGMA, seed=8)
+    for users in hot:
+        serve(users, via_batcher=True, phase="stream")
+    t0 = time.perf_counter()
+    part = r.repartition(async_=False)
+    repartition_s = time.perf_counter() - t0
+    n_groups = len(part.groups)
+    fail_unless(n_groups >= 2, f"the repartition gave {n_groups} bn-group")
+    hetero = [(u, serve(u, via_batcher=False, phase="repartitioned"))
+              for u, _ in uniform]
+    for (_, a), (_, b) in zip(uniform, hetero):
+        same_bits(a, b, "the heterogeneous layout differs from the uniform "
+                  "one")
+    fresh_device("after the repartition", hetero)
+    window("repartitioned via query", via_batcher=False, seed=13)
+    r.upsert(np.arange(next_fresh, next_fresh + 64), centers[:64])
+    after = [(u, serve(u, via_batcher=False, phase="repartitioned"))
+             for u in (next(req), next(req))]
+    counts = {"gam_retrieve": gr.gam_retrieve.launches,
+              "tess_project": tp.tess_project.launches}
+    for name, n in counts.items():
+        fail_unless(n > 0, f"{name} never launched on the service path")
+
+    snap = ROOT / "build" / "chip_smoke_service.npz"
+    t0 = time.perf_counter()
+    r.snapshot(str(snap))
+    back = open_retriever(spec, snapshot=str(snap), device=DEVICE)
+    snapshot_s = time.perf_counter() - t0
+    snap.unlink()
+    fail_unless(len(back.delta) == 64, "the restored delta is not the live "
+                "one")
+    for users, res in after:
+        same_bits(res, back.query(users), "the restored service answers "
+                  "differently")
+
+    svc = {"n_shards": SVC_SHARDS, "build_s": build_s,
+           "device_bytes": dev_bytes, "requests": len(per_request),
+           "windows": windows, "latency_ms": lat, "stream_wall_s": stream_s,
+           "launches_per_request": per_request,
+           "delta_len_before_compaction": delta_len,
+           "compaction_slices": slices,
+           "compaction_request_ms_sum": float(sum(lat["compaction"])),
+           "repartition_s": repartition_s, "groups": n_groups,
+           "partition": {"lengths": list(part.lengths),
+                         "bns": list(part.bns)},
+           "snapshot_restore_s": snapshot_s, "launches": counts,
+           "metrics": r.metrics.snapshot()}
+    report["service"] = svc
+    m = svc["metrics"]
+    print(f"service: {N_ITEMS} items in {SVC_SHARDS} shards, built in "
+          f"{build_s:.1f} s; on the card {dev_bytes}")
+    print(f"service: {len(per_request)} requests of {BATCH}, every one equal "
+          f"to the dense oracle; gam_retrieve launches per request "
+          f"{sorted(set(per_request))}; delta {delta_len} rows before the "
+          f"compaction ({SVC_MUTATE} x ({SVC_FRESH} fresh + {SVC_REWRITE} "
+          f"rewritten) upserts, {SVC_MUTATE} x {SVC_DELETE} deletes)")
+    for name, w in windows.items():
+        print(f"service window {name}: {w['requests']} requests of {BATCH} "
+              f"back to back, {w['launches_per_request']} launches each, "
+              f"request p50 {w['p50_ms']:.3f} ms p99 {w['p99_ms']:.3f} ms max "
+              f"{w['max_ms']:.3f} ms (host clock), {w['qps']:.1f} queries/s "
+              f"over the window's {w['wall_s']:.3f} s")
+    print(f"service: compaction {slices} slices, {sum(lat['compaction']):.0f}"
+          f" ms of requests while it ran (p50 "
+          f"{np.percentile(lat['compaction'], 50):.3f} ms); equal to a fresh "
+          f"gam-device build bit for bit; repartition to {n_groups} "
+          f"bn-groups {list(part.bns)} in {repartition_s:.1f} s, "
+          f"heterogeneous = uniform bit for bit; snapshot -> "
+          f"restore with a 64-row delta bit-identical "
+          f"({snapshot_s:.1f} s); launches {counts}")
+    print("service: metrics " + json.dumps(
+        {k: m[k] for k in ("n_requests", "n_batches", "qps",
+                           "latency_p50_ms", "latency_p99_ms",
+                           "occupancy_mean", "discard_mean",
+                           "shard_balance", "n_upserts", "n_deletes",
+                           "n_compactions", "n_async_compactions",
+                           "n_compact_slices", "n_repartitions")}))
+    del r, back
+    torch.cuda.empty_cache()
+
+
+def phase_service_int8(torch, report, items, centers, cfg, bucket):
+    """Phase 6b: the same service under the compressed catalog; served ids
+    are the exact top kappa of each query's pool, and equal the dense
+    oracle where the pool covers it."""
+    from repro_torch.core.retrieval import topk_desc
+    from repro_torch.core.mapping import sparse_map
+    from repro_torch.kernels import gam_retrieve as gr
+    from repro_torch.kernels import gam_score as gs
+    from repro_torch.retriever import RetrieverSpec, open_retriever
+    spec = RetrieverSpec(cfg=cfg, backend="sharded", n_shards=SVC_SHARDS,
+                         min_overlap=MIN_OVERLAP, kappa=KAPPA, bucket=bucket,
+                         batch_size=BATCH, quantize="int8",
+                         rerank_factor=RERANK, compress_postings=True)
+    t0 = time.perf_counter()
+    r = open_retriever(spec, items=items, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fail_unless(len(r.base.metas) == 1, "the uniform layout is one group")
+    meta = r.base.metas[0]
+    flat = r.base.factors_g[0]
+    pool = KAPPA * RERANK
+    gr.gam_retrieve.launches = gr.gam_retrieve_q.launches = 0
+    users_all = requests(centers, SVC_INT8_REQUESTS, BATCH, SIGMA, seed=9)
+    answers, lat = [], []
+    for users in users_all:
+        t0 = time.perf_counter()
+        answers.append(r.query(users))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = {"gam_retrieve_q": gr.gam_retrieve_q.launches,
+                "gam_retrieve": gr.gam_retrieve.launches}
+    fail_unless(launches["gam_retrieve_q"] == SVC_INT8_REQUESTS
+                and launches["gam_retrieve"] == 0,
+                f"the compressed service launched {launches}")
+    covered_queries = 0
+    for users, res in zip(users_all, answers):
+        u = torch.as_tensor(users, device=DEVICE)
+        tau, vals = sparse_map(u, cfg)
+        prs = gr.gam_retrieve_q(u, tau, vals != 0, meta, pool,
+                                min_overlap=MIN_OVERLAP,
+                                alive=r.base.alive_g[0])
+        sc = gs.gam_score(u, flat, torch.ones((BATCH, flat.shape[0]),
+                                              dtype=torch.bool,
+                                              device=DEVICE))
+        c_vals, c_rows = rerank_choice(torch, prs.rows, sc, KAPPA, topk_desc,
+                                       gs.NEG)
+        c_ids = rows_to_ids(r.base, c_rows, gs.NEG)
+        fail_unless(np.array_equal(res.ids, c_ids), "int8 service: served "
+                    "ids are not the exact top kappa of the pool")
+        fail_unless(max_ulp(np.where(c_ids >= 0, res.scores, 0), c_vals)
+                    <= ULP, "int8 service: a served score is beyond 4 ulp "
+                    "of its exact score")
+        o_s, o_i = service_oracle(torch, r, users)
+        prow = rows_to_ids(r.base, prs.rows.cpu().numpy(), gs.NEG)
+        covered = ((o_i[:, :, None] == prow[:, None, :]).any(-1)
+                   | (o_i < 0)).all(axis=1)
+        covered_queries += int(covered.sum())
+        fail_unless(np.array_equal(res.ids[covered], o_i[covered]),
+                    "int8 service: ids differ from the dense oracle on a "
+                    "query whose pool covers it")
+        del sc
+    report["service_int8"] = {
+        "build_s": build_s, "device_bytes": r.base.device_bytes(),
+        "request_ms": lat, "launches": launches,
+        "pool_covered_queries": covered_queries,
+        "queries": SVC_INT8_REQUESTS * BATCH}
+    print(f"service int8: built in {build_s:.1f} s, on the card "
+          f"{r.base.device_bytes()}; {SVC_INT8_REQUESTS} requests "
+          f"({', '.join(f'{x:.3f}' for x in lat)} ms), served ids = exact "
+          f"top {KAPPA} of each pool of {pool} on every query and = the "
+          f"dense oracle on all {covered_queries} of "
+          f"{SVC_INT8_REQUESTS * BATCH} queries whose pool covers it; "
+          f"launches {launches}")
+    del r
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------ the last two kernels
+
+PREFILL_TEST_SHAPES = [(1, 64, 1, 1, 32), (2, 128, 2, 4, 64),
+                       (1, 96, 1, 8, 64), (2, 256, 4, 2, 32),
+                       (1, 100, 2, 3, 48)]
+COARSE_TEST_SHAPES = [(1, 64, 500), (4, 128, 4096), (8, 32, 100),
+                      (2, 256, 2049)]
+
+
+def prefill_tol(dtype) -> tuple[float, float]:
+    """(rtol, atol) between two f32 computations of causal attention whose
+    outputs are rounded once to ``dtype``: f32 the reference's 2e-5; bf16
+    one bf16 step (at most 2^-7 of the value) over a floor far below any
+    output that f32 summation order could move."""
+    import torch
+    return (2e-5, 2e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-5)
+
+
+def phase_new_kernels(torch, report, lm):
+    """Phase 7: flash_prefill and gam_coarse through the ``ops`` entries at
+    the test shapes and at the LM substrate's, each held against its plain
+    version; timed beside its plain version, its bound and (flash_prefill)
+    SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gam_coarse as gc
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import _grouped_attention
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(3)
+    prefill = []
+    for shape in PREFILL_TEST_SHAPES:
+        b, s, hkv, g, hd = shape
+        for dt in (torch.float32, torch.bfloat16):
+            prefill.append(tuple(torch.randn(sh, device=dev, generator=gen)
+                                 .to(dt) for sh in ((b, s, hkv, g, hd),
+                                                    (b, s, hkv, hd),
+                                                    (b, s, hkv, hd))))
+    q_lm, k_lm, v_lm, lm_cfg = lm["prefill"]
+    b, s, h, hd = q_lm.shape
+    hkv = k_lm.shape[2]
+    q5 = q_lm.reshape(b, s, hkv, h // hkv, hd).contiguous()
+    i_lm = len(prefill)              # tinyllama's prefill: bf16, then f32
+    prefill.append((q5, k_lm.contiguous(), v_lm.contiguous()))
+    prefill.append(tuple(x.float() for x in prefill[i_lm]))
+    coarse = []
+    for bb, d, v in COARSE_TEST_SHAPES:
+        coarse.append((torch.randn((bb, d), device=dev, generator=gen),
+                       torch.randint(-1, 2, (d, v), device=dev,
+                                     generator=gen, dtype=torch.int8),
+                       torch.rand(v, device=dev, generator=gen)))
+    for pat in (lm["patterns_d2048"], lm["patterns_d512"]):
+        nnz = pat.abs().sum(dim=0).float()
+        coarse.append((torch.randn((LM_BATCH, pat.shape[0]), device=dev,
+                                   generator=gen), pat,
+                       1.0 / torch.sqrt(torch.clamp(nnz, min=1.0))))
+
+    # --- the path: the ops entries, with the counts set to 0 around it
+    fp.flash_prefill.launches = gc.gam_coarse.launches = 0
+    outs_p = [ops.flash_prefill(*x) for x in prefill]
+    outs_c = [ops.gam_coarse(*x) for x in coarse]
+    torch.cuda.synchronize()
+    launches = {"flash_prefill": fp.flash_prefill.launches,
+                "gam_coarse": gc.gam_coarse.launches}
+    fail_unless(launches == {"flash_prefill": len(prefill),
+                             "gam_coarse": len(coarse)},
+                f"the ops entries launched {launches}")
+
+    errs_p, typical = [], []
+    for x, got in zip(prefill, outs_p):
+        want = fp.flash_prefill_plain(*x).float()
+        rtol, atol = prefill_tol(x[0].dtype)
+        err = float((got.float() - want).abs().max())
+        fail_unless(bool(torch.isclose(got.float(), want, rtol=rtol,
+                                       atol=atol).all()),
+                    f"flash_prefill {tuple(x[0].shape)} {x[0].dtype} differs "
+                    f"from its plain version by {err} (mean |want| "
+                    f"{float(want.abs().mean()):.3g})")
+        errs_p.append(err)
+        typical.append(float(want.abs().mean()))
+    # the model's blockwise path (attn_f32) also computes in f32 and rounds
+    # once to bf16: one bf16 step apart at most
+    blockwise = _grouped_attention(q_lm, k_lm, v_lm, lm_cfg).float()
+    got_lm = outs_p[i_lm].reshape(blockwise.shape).float()
+    err_blockwise = float((got_lm - blockwise).abs().max())
+    rtol, atol = prefill_tol(torch.bfloat16)
+    fail_unless(bool(torch.isclose(got_lm, blockwise, rtol=rtol,
+                                   atol=atol).all()),
+                f"flash_prefill differs from the model's blockwise attention "
+                f"by {err_blockwise} (mean |want| "
+                f"{float(blockwise.abs().mean()):.3g})")
+    errs_c = []
+    for x, got in zip(coarse, outs_c):
+        want = gc.gam_coarse_plain(*x)
+        fail_unless(bool(((got - want).abs()
+                          <= gc.coarse_tolerance(*x)).all()),
+                    f"gam_coarse {tuple(x[1].shape)} differs from its plain "
+                    "version beyond the f32 summation bound")
+        errs_c.append(float((got - want).abs().max()))
+    print(f"new kernels: flash_prefill = plain at {len(prefill)} shapes "
+          f"(max abs err {max(errs_p[:i_lm]):.3g} at the test shapes; at "
+          f"tinyllama's prefill, mean |out| {typical[i_lm]:.3g}: bf16 "
+          f"{errs_p[i_lm]:.3g}, f32 {errs_p[i_lm + 1]:.3g}, bf16 against the "
+          f"model's blockwise attention {err_blockwise:.3g}); "
+          f"gam_coarse = plain "
+          f"within the f32 summation bound at {len(coarse)} shapes; "
+          f"launches {launches}")
+
+    # --- timings at the LM shapes
+    f, bf = 4, 2
+    qs = q5.reshape(b, s, h, hd).transpose(1, 2)
+    ks, vs = k_lm.transpose(1, 2), v_lm.transpose(1, 2)
+    sdpa = (lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                   enable_gqa=True))
+    lib_err = float((sdpa().transpose(1, 2).reshape(q5.shape).float()
+                     - outs_p[i_lm].float()).abs().max())
+    pairs = s * (s + 1) / 2
+    flops_half = 2.0 * b * h * hd * pairs           # q.k, and again p.v
+    n_bytes = (2 * q5.numel() + k_lm.numel() + v_lm.numel()) * bf
+    t_ops = (flops_half / BF16_FLOPS + flops_half / F32_FLOPS) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    rows = [{"name": "flash_prefill", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+             "replaces": "src/repro/kernels/flash_prefill.py:91",
+             "launches": launches["flash_prefill"],
+             "max_abs_err": errs_p[i_lm],
+             "ms": time_ms(torch, lambda: fp.flash_prefill(*prefill[i_lm]),
+                           10),
+             "plain_ms": time_ms(torch, lambda: fp.flash_prefill_plain(
+                 *prefill[i_lm]), 3),
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "library_ms": time_ms(torch, sdpa, 10)}]
+    for name, x, err in (("gam_coarse", coarse[-2], errs_c[-2]),
+                         ("gam_coarse@d512", coarse[-1], errs_c[-1])):
+        bb, d = x[0].shape
+        v = x[1].shape[1]
+        b_ms, b_by = bound_ms(bb * d * f + d * v + v * f + bb * v * f,
+                              2.0 * bb * d * v)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/gam_coarse.cu",
+                     "replaces": "src/repro/kernels/gam_coarse.py:43",
+                     "launches": launches["gam_coarse"], "max_abs_err": err,
+                     # tenths of a ms: in a CUDA graph, so the host's cost
+                     # of an eager launch is not counted as the kernel's
+                     "ms": graph_ms(torch, lambda x=x: gc.gam_coarse(*x)),
+                     "plain_ms": graph_ms(torch, lambda x=x:
+                                          gc.gam_coarse_plain(*x)),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    report["new_kernels"] = {
+        "flash_prefill_lm_mean_abs_out": typical[i_lm],
+        "flash_prefill_lm_f32_max_abs": errs_p[i_lm + 1],
+        "flash_prefill_vs_blockwise_max_abs": err_blockwise,
+        "sdpa_vs_kernel_max_abs": lib_err,
+        "flash_prefill_bound_ms_f32_rate": 2 * flops_half / F32_FLOPS * 1e3,
+        "flash_prefill_bound_ms_bf16_rate": 2 * flops_half / BF16_FLOPS * 1e3,
+        "flash_prefill_bound_ms_bytes": t_bytes}
+    eager = time_ms(torch, lambda: gc.gam_coarse(*coarse[-2]), 20)
+    report["new_kernels"]["gam_coarse_eager_call_ms"] = eager
+    for row in rows:
+        print(f"{row['name']}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    print(f"flash_prefill bound at tinyllama's prefill: "
+          f"{t_ops:.4f} ms with q.k at the bf16 rate and p.v at the f32 "
+          f"rate (p stays f32), {2 * flops_half / F32_FLOPS * 1e3:.4f} ms "
+          f"all f32, {2 * flops_half / BF16_FLOPS * 1e3:.4f} ms all bf16, "
+          f"{t_bytes:.4f} ms by bytes; sdpa vs kernel max abs {lib_err:.3g}; "
+          f"gam_coarse timed in a CUDA graph (one eager call at d 2048: "
+          f"{eager:.4f} ms)")
     return rows
 
 
@@ -656,7 +1261,7 @@ def main() -> int:
     report: dict = {"device": torch.cuda.get_device_name(0)}
 
     # ---------------------------------------------------------- 1. build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = _build.build_all()
     for name in libs:
         _build.library(name)
@@ -674,6 +1279,8 @@ def main() -> int:
     tau, vals = sparse_map(items_t, cfg)
     nz = (vals != 0).cpu().numpy()
     bucket = int(np.bincount(tau.cpu().numpy()[nz], minlength=cfg.p).max())
+    # the service's upserts may lengthen a list by one entry a row
+    svc_bucket = bucket + SVC_MUTATE * (SVC_FRESH + SVC_REWRITE) + 64
     spec = RetrieverSpec(cfg=cfg, backend="gam-device",
                          min_overlap=MIN_OVERLAP, kappa=KAPPA, bucket=bucket)
     print(f"data: {N_ITEMS} items, p={cfg.p}, bucket={bucket} "
@@ -1062,8 +1669,30 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------- 5. / 5b. LM serving
-    kernels += phase_lm(torch, report)
-    kernels += phase_gam_head(torch, report)
+    keep: dict = {}
+    phase_s = {"1-4": time.perf_counter() - t_start}
+
+    def lap(name):
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+
+    kernels += phase_lm(torch, report, keep)
+    lap("5")
+    kernels += phase_gam_head(torch, report, keep)
+    lap("5b")
+
+    # ------------------------------------- 6. / 6b. the service tier
+    phase_service(torch, report, items, centers, cfg, svc_bucket)
+    lap("6")
+    phase_service_int8(torch, report, items, centers, cfg, svc_bucket)
+    lap("6b")
+
+    # ------------------------------------------- 7. the last two kernels
+    kernels += phase_new_kernels(torch, report, keep)
+    lap("7")
+    del keep
+    report["phase_s"] = phase_s
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in phase_s.items()))
     report["kernels"] = kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -90,18 +90,22 @@ def candidate_mask_from_table(table: torch.Tensor, spill: torch.Tensor,
 
     ``query_indices``/``query_mask``: (k,) or (Q, k) -> (sentinel,) or
     (Q, sentinel) bool.  Spill entries are always candidates; pad entries
-    (id == sentinel) drop out of the count."""
+    (id == sentinel) drop out of the count, and so do spill entries outside
+    ``0..sentinel-1`` (the sharded index pads its spill lists with the
+    shard's cap), as the reference's ``mode="drop"`` scatter drops them."""
     single = query_indices.dim() == 1
     qi = query_indices.reshape(-1, query_indices.shape[-1]).long()
     qm = query_mask.reshape(qi.shape).to(torch.bool)
+    q = qi.shape[0]
     rows = table[qi]                                   # (Q, k, bucket)
     valid = (rows < sentinel) & qm[..., None]
-    ids = torch.where(valid, rows, 0).long().flatten(1)
-    overlap = torch.zeros((qi.shape[0], sentinel), dtype=torch.int32,
-                          device=table.device)
-    overlap.scatter_add_(1, ids, valid.flatten(1).to(torch.int32))
+    # count only the real entries (pads would pile onto one counter)
+    flat = (torch.arange(q, device=table.device)[:, None, None] * sentinel
+            + rows)[valid]
+    overlap = torch.bincount(flat, minlength=q * sentinel).view(q, sentinel)
     out = overlap >= min_overlap
-    out[:, spill.long()] = True
+    spill = spill.long()
+    out[:, spill[(spill >= 0) & (spill < sentinel)]] = True
     return out[0] if single else out
 
 

@@ -7,11 +7,14 @@ the kernel to the plain version.  Counterpart of ``repro.kernels.ops``.
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_prefill as _fp
+from repro_torch.kernels import gam_coarse as _gc
 from repro_torch.kernels import gam_retrieve as _gr
 from repro_torch.kernels import gam_score as _gs
 from repro_torch.kernels import tess_project as _tp
 
-__all__ = ["decode_attention", "gam_retrieve", "gam_score", "tess_project"]
+__all__ = ["decode_attention", "flash_prefill", "gam_coarse", "gam_retrieve",
+           "gam_score", "tess_project"]
 
 
 def _on_cpu(t) -> bool:
@@ -63,3 +66,18 @@ def decode_attention(q, k, v, length):
     if _on_cpu(q):
         return _da.decode_attention_plain(q, k, v, length)
     return _da.decode_attention(q, k, v, length)
+
+
+def gam_coarse(h, patterns, inv_sqrt_nnz):
+    """(h (B, d) @ patterns (d, V) int8) * inv_sqrt_nnz (V,) as (B, V) f32."""
+    if _on_cpu(h):
+        return _gc.gam_coarse_plain(h, patterns, inv_sqrt_nnz)
+    return _gc.gam_coarse(h, patterns, inv_sqrt_nnz)
+
+
+def flash_prefill(q, k, v):
+    """Causal GQA attention: q (B, S, Hkv, G, hd), k/v (B, S, Hkv, hd) ->
+    shaped and typed like q."""
+    if _on_cpu(q):
+        return _fp.flash_prefill_plain(q, k, v)
+    return _fp.flash_prefill(q, k, v)

@@ -3,8 +3,9 @@
 Counterpart of ``repro.retriever.api``.  :class:`RetrieverSpec` keeps every
 field of the reference, so snapshot headers stay byte-compatible; the device
 is an argument of :func:`open_retriever` and of the backend constructors,
-not a spec field.  This slice of the port serves ``brute`` and
-``gam-device``; the other backends raise, naming the slice that brings them.
+not a spec field.  The port serves ``brute``, ``gam-device`` and the
+``sharded`` service tier; the other backends raise, naming the slice that
+brings them.
 """
 from __future__ import annotations
 
@@ -51,6 +52,12 @@ class RetrieverSpec:
     cache_capacity: int = 0       # hot-query result cache rows (0 = off)
     cache_ttl_s: float | None = None  # optional cache entry age-out
     options: tuple[tuple[str, Any], ...] = ()   # backend-specific extras
+
+    def opt(self, name: str, default: Any = None) -> Any:
+        for key, val in self.options:
+            if key == name:
+                return val
+        return default
 
 
 class Retriever(abc.ABC):
@@ -102,12 +109,12 @@ class Retriever(abc.ABC):
 _MODULES: dict[str, tuple[str, str]] = {
     "brute": ("repro_torch.retriever.brute", "BruteRetriever"),
     "gam-device": ("repro_torch.retriever.gam", "GamIndexRetriever"),
+    "sharded": ("repro_torch.retriever.sharded", "ShardedRetriever"),
 }
 
 # backends of the reference not ported yet -> the ROADMAP slice bringing them
 _LATER = {
     "gam": "the CPU posting-list slice (ROADMAP queue 1)",
-    "sharded": "the in-process service tier slice (ROADMAP queue 1)",
     "sharded-multihost": "the multi-host slice (ROADMAP queue 1)",
     "srp-lsh": "the baselines slice (ROADMAP queue 1)",
     "superbit-lsh": "the baselines slice (ROADMAP queue 1)",
@@ -136,14 +143,17 @@ def _resolve(name: str):
 def open_retriever(spec: RetrieverSpec, items: np.ndarray | None = None,
                    ids: np.ndarray | None = None, *,
                    snapshot: str | None = None,
-                   device: str | torch.device | None = None) -> Retriever:
+                   device: str | torch.device | None = None,
+                   **backend_kw) -> Retriever:
     """Resolve ``spec.backend`` and open a retriever on ``device`` (default
     ``cuda``; raises when no card is present).  With ``items`` the catalog
-    is built, with ``snapshot`` restored, with neither left empty."""
+    is built, with ``snapshot`` restored, with neither left empty.  Extra
+    keyword arguments go to the backend (``sharded``: ``clock``,
+    ``tracer``, ``qos``, ``faults``; a ``mesh`` raises)."""
     if items is not None and snapshot is not None:
         raise ValueError("pass either items or snapshot, not both")
     cls = _resolve(spec.backend)
-    retriever = cls(spec, device=resolve_device(device))
+    retriever = cls(spec, device=resolve_device(device), **backend_kw)
     if snapshot is not None:
         return retriever.restore(snapshot)
     if items is not None:

@@ -358,3 +358,138 @@ def test_decode_kernel_model_path_equals_einsum_path(dev):
         torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
         tok = lp[:, 0].argmax(-1, keepdim=True)
     assert da.decode_attention.launches == before + 5 * cfg.n_layers
+
+
+# ------------------------------------------------------------ flash_prefill
+
+PREFILL_SHAPES = [(1, 64, 1, 1, 32), (2, 128, 2, 4, 64), (1, 96, 1, 8, 64),
+                  (2, 256, 4, 2, 32), (1, 100, 2, 3, 48), (1, 77, 1, 8, 128),
+                  (8, 1024, 4, 8, 64)]
+
+
+@pytest.mark.parametrize("b,s,hkv,g,hd", PREFILL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_kernel_equals_plain(dev, b, s, hkv, g, hd, dtype):
+    """f32 within 2e-5, the reference's tolerance (the kernel's online
+    softmax sums in another order than the plain version).  bf16 within one
+    bf16 step: both sides compute in f32 on the same bf16 inputs and round
+    once, so rtol 2^-7 of the value over an atol of 1e-5.  The last shape is
+    tinyllama's prefill."""
+    from repro_torch.kernels import flash_prefill as fp
+    r = np.random.default_rng(b * s + hd + g)
+    mk = (lambda *shape: torch.from_numpy(r.normal(size=shape).astype(
+        np.float32)).to(dev, dtype))
+    q, k, v = mk(b, s, hkv, g, hd), mk(b, s, hkv, hd), mk(b, s, hkv, hd)
+    before = fp.flash_prefill.launches
+    got = fp.flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill.launches == before + 1
+    want = fp.flash_prefill_plain(q, k, v)
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_prefill_kernel_is_causal(dev):
+    from repro_torch.kernels import flash_prefill as fp
+    g = torch.Generator(dev).manual_seed(11)
+    q = torch.randn((1, 200, 2, 4, 64), device=dev, generator=g)
+    k = torch.randn((1, 200, 2, 64), device=dev, generator=g)
+    v = torch.randn((1, 200, 2, 64), device=dev, generator=g)
+    out1 = fp.flash_prefill(q, k, v)
+    k[:, 130:] = 77.0
+    v[:, 130:] = -77.0
+    out2 = fp.flash_prefill(q, k, v)
+    assert torch.equal(out1[:, :130], out2[:, :130])
+
+
+# ------------------------------------------------------------ gam_coarse
+
+
+@pytest.mark.parametrize("b,d,v,lo,hi", [
+    (1, 64, 500, -1, 2), (4, 128, 4096, -1, 2), (8, 32, 100, -1, 2),
+    (2, 256, 2049, -1, 2), (3, 100, 33, -128, 128), (13, 300, 1001, -1, 2),
+    (8, 2048, 32000, -1, 2), (8, 512, 32000, -1, 2)])
+def test_gam_coarse_kernel_equals_plain(dev, b, d, v, lo, hi):
+    """Within the rounding bound of two d-term f32 sums in other orders
+    (``coarse_tolerance``); the last two shapes are tinyllama's head width
+    at d 2048 and at the GAM head's d 512."""
+    from repro_torch.kernels import gam_coarse as gc
+    r = np.random.default_rng(b * d + v)
+    h = torch.from_numpy(r.normal(size=(b, d)).astype(np.float32)).to(dev)
+    pat = torch.from_numpy(r.integers(lo, hi, size=(d, v)).astype(
+        np.int8)).to(dev)
+    inv = torch.from_numpy(r.random(v).astype(np.float32)).to(dev)
+    before = gc.gam_coarse.launches
+    got = gc.gam_coarse(h, pat, inv)
+    torch.cuda.synchronize()
+    assert gc.gam_coarse.launches == before + 1
+    want = gc.gam_coarse_plain(h, pat, inv)
+    assert bool(((got - want).abs() <= gc.coarse_tolerance(h, pat,
+                                                            inv)).all())
+
+
+# ------------------------------------------------------------ sharded tier
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_sharded_retriever_on_card_equals_cpu(dev, quantize, tmp_path):
+    """The service tier on the card answers like the same backend on the
+    CPU, bit for bit: build, mutations, a background compaction, a
+    repartition to narrow blocks (bn 8 and 16) and a snapshot round trip;
+    ``gam_retrieve`` launches once per bn-group and once for the delta."""
+    from repro_torch.kernels import gam_retrieve as gr
+    items = unit_factors(700, 16, 5)
+    users = unit_factors(24, 16, 6)
+    spec = RetrieverSpec(cfg=CFG, backend="sharded", n_shards=4,
+                         min_overlap=2, bucket=512, quantize=quantize,
+                         rerank_factor=2,
+                         options=(("compact_slice_rows", 128),
+                                  ("rebalance_target_blocks", 16)))
+    rs = {d: open_retriever(spec, items=items, device=d)
+          for d in ("cpu", "cuda")}
+
+    def same(tag, **kw):
+        a = rs["cpu"].query(users, **kw)
+        b = rs["cuda"].query(users, **kw)
+        np.testing.assert_array_equal(a.ids, b.ids, err_msg=tag)
+        np.testing.assert_array_equal(a.scores, b.scores, err_msg=tag)
+        np.testing.assert_array_equal(a.n_scored, b.n_scored, err_msg=tag)
+
+    same("build")
+    same("build exact", exact=True)
+    for r in rs.values():
+        r.upsert(np.arange(690, 720), unit_factors(30, 16, 7))
+        r.delete(np.arange(0, 700, 11))
+    kernel = gr.gam_retrieve_q if quantize == "int8" else gr.gam_retrieve
+    before = kernel.launches
+    same("mutations")
+    assert kernel.launches == before + 2       # one group + the delta
+    for r in rs.values():
+        r.compact(async_=True)
+    while rs["cuda"].maintenance_stats()["compaction"]["active"]:
+        same("mid-compaction")
+    for lengths, bns in (((100, 200, 150, 200), (8, 16, 16, 64)),
+                         ((300, 100, 100, 150), (16, 8, 8, 16))):
+        for r in rs.values():
+            ids, fac = r._catalog_arrays()
+            part = type(r.base.partition).from_lengths(
+                (lengths[0], lengths[1], lengths[2],
+                 ids.size - sum(lengths[:3])), bns)
+            r.compact(partition=part)
+            r.upsert([5000], unit_factors(1, 16, 8))
+        n_groups = len(rs["cuda"].base.metas)
+        before = kernel.launches
+        same(f"partition {bns}")
+        assert kernel.launches == before + n_groups + 1
+    # the repartitioner's own plan: 16 blocks a shard gives bn 8-16 here
+    parts = [r.repartition(async_=False) for r in rs.values()]
+    assert parts[0] == parts[1] and max(parts[1].bns) <= 16
+    same("repartitioned")
+    path = str(tmp_path / "sharded.npz")
+    rs["cuda"].snapshot(path)
+    back = open_retriever(spec, snapshot=path, device="cuda")
+    a, b = back.query(users), rs["cpu"].query(users)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.scores, b.scores)

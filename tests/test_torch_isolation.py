@@ -23,6 +23,8 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.retriever.gam, repro_torch.retriever.brute\n"
             "import repro_torch.core, repro_torch.kernels.ops\n"
             "import repro_torch.compress\n"
+            "import repro_torch.retriever.sharded, repro_torch.service\n"
+            "import repro_torch.obs\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -76,8 +78,39 @@ def test_open_retriever_without_device_never_runs_on_cpu(monkeypatch):
     from repro_torch.retriever import RetrieverSpec, open_retriever
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     items = np.eye(16, dtype=np.float32)
-    for backend in ("gam-device", "brute"):
+    for backend in ("gam-device", "brute", "sharded"):
         spec = RetrieverSpec(cfg=GamConfig(k=16), backend=backend)
         with pytest.raises(RuntimeError, match="CUDA"):
             open_retriever(spec, items)
         assert open_retriever(spec, items, device="cpu").n_items == 16
+
+
+def test_service_entry_points_without_device_never_run_on_cpu(monkeypatch):
+    """The service tier's public builders take the card when no device is
+    named, as ``open_retriever`` does, and raise without one."""
+    from repro_torch.core.mapping import GamConfig
+    from repro_torch import service
+    from repro_torch.service.sharded_index import build_group_meta
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GamConfig(k=16)
+    items = np.eye(16, dtype=np.float32)
+    part = service.Partition.uniform(16, 2)
+    tau = np.zeros((16, cfg.k), np.int32)
+    mask = np.zeros((16, cfg.k), bool)
+    builders = [
+        lambda **kw: service.ShardedGamIndex.build(items, cfg, n_shards=2,
+                                                   **kw),
+        lambda **kw: build_group_meta(tau, mask, cfg.p, part, 0,
+                                      [[], []], **kw),
+        lambda **kw: service.DeltaSegment(cfg, **kw),
+        lambda **kw: service.CompactionPlanner(cfg, np.arange(16), items,
+                                               **kw),
+        lambda **kw: service.MapCache(cfg, **kw),
+    ]
+    for build in builders:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+        build(device="cpu")
+    index = service.ShardedGamIndex.build(items, cfg, n_shards=2,
+                                          device="cpu")
+    assert index.device.type == "cpu" and index.n_live == 16

@@ -203,10 +203,14 @@ def test_unsupported_settings_raise_typed_errors():
     with pytest.raises(tr.UnsupportedOp, match="slice"):
         tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="gam"),
                           device="cpu")
-    for name in ("sharded", "sharded-multihost", "srp-lsh", "pca-tree"):
+    for name in ("sharded-multihost", "srp-lsh", "pca-tree"):
         with pytest.raises(KeyError, match="slice"):
             tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend=name),
                               device="cpu")
+    # the sharded tier serves one card: a device mesh names its slice
+    with pytest.raises(tr.UnsupportedOp, match="multi-host slice"):
+        tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="sharded"),
+                          device="cpu", mesh=object())
     with pytest.raises(KeyError, match="unknown"):
         tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="nope"),
                           device="cpu")
