@@ -5,7 +5,9 @@ on CUDA tensors; ``decode_attention_plain`` is its plain PyTorch version
 (CPU tensors, and the kernel's reference), the formula of the reference's
 ``decode_attention_ref``: scores and softmax in f32 over the positions
 ``<= length``, the output rounded once to q's dtype.  Counterpart of the
-Pallas kernel in ``repro.kernels.decode_attention``.
+Pallas kernel in ``repro.kernels.decode_attention``.  bf16 runs on the
+tensor cores (p split exactly into three bf16 terms for p.v), f32 on the
+CUDA cores.
 
 Layout: q (B, Hkv, G, hd), G = H / Hkv query heads per KV head; k/v
 (B, S, Hkv, hd); out (B, Hkv, G, hd).  ``length`` is a () int32 tensor on
@@ -23,11 +25,17 @@ __all__ = ["NEG", "decode_attention", "decode_attention_plain",
            "decode_splits"]
 
 NEG = -1e30
+# the f32 kernel (decode_partial_kernel)
 _THREADS = 128          # threads of a CTA (DA_THREADS)
 _MAX_PAIRS = 128 * 16   # (query head, dim) accumulators of one CTA
 _MAX_HEADS_PER_CTA = 32
 _CTAS_PER_SM = 16       # splits are sized to give about this many CTAs
 _TILE_SMEM = 100 * 1024  # largest shared memory a tile size may take
+# the bf16 kernel (decode_mma_kernel)
+_MMA_HEADS = 16         # query heads of a CTA, one mma row tile (DM_HEADS)
+_MMA_WARPS = 4          # warps of a CTA, each with its own ring (DM_WARPS)
+_MMA_STAGES = 3         # tiles in a warp's ring (DM_STAGES)
+_MMA_CTAS_PER_SM = 1    # splits are sized to give about this many CTAs
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -60,15 +68,43 @@ def _smem(tile: int, gpad: int, hd: int, elt: int) -> int:
             + 4 * (gpad * hd4 + gpad * tile + 3 * gpad))
 
 
+def _mma_hdp(hd: int) -> int:
+    """The bf16 kernel's padded head width (its HDP template): 32..256."""
+    return next(w for w in (32, 64, 128, 256) if hd <= w)
+
+
+def _mma_tile(hd: int) -> int:
+    """Positions of one warp's tile in the bf16 kernel (DmShape::T)."""
+    return 16 if _mma_hdp(hd) >= 128 else 32
+
+
+def _mma_smem(hd: int) -> int:
+    """Shared memory of the bf16 kernel (DmShape::BYTES), bytes: each warp's
+    ring of K and V tiles with 16-byte padded rows, and the query rows."""
+    ld = _mma_hdp(hd) + 8
+    return 2 * (_MMA_WARPS * _MMA_STAGES * 2 * _mma_tile(hd) * ld
+                + _MMA_HEADS * ld)
+
+
 def decode_splits(b: int, hkv: int, g: int, hd: int, s: int, sms: int,
                   elt: int = 2) -> tuple[int, int, int, int, int, int]:
     """The kernel's grid: (gc, heads per CTA, head blocks, tile, chunk,
     splits) for ``elt``-byte elements.
 
-    Tiles are 64 positions, or 32 / 16 where two stages of K and V rows
-    would take more than 100 KB of shared memory.  S is cut into chunks of
-    whole tiles, as many as give about ``_CTAS_PER_SM`` CTAs per SM (at most
-    one tile per chunk)."""
+    bf16 (``elt`` 2, the tensor-core kernel): 16 query heads a CTA, tiles
+    of 32 positions (16 at hd > 64) that its warps take in turn, gc 0 (no
+    score chunks).  f32: tiles are 64 positions, or 32 / 16 where two stages
+    of K and V rows would take more than 100 KB of shared memory.  S is cut
+    into chunks of whole tiles, as many as give about ``_MMA_CTAS_PER_SM`` /
+    ``_CTAS_PER_SM`` CTAs per SM (at most one tile per chunk)."""
+    if elt == 2:
+        n_gblk = -(-g // _MMA_HEADS)
+        tile = _mma_tile(hd)
+        tiles = -(-s // tile)
+        want = -(-_MMA_CTAS_PER_SM * sms // (b * hkv * n_gblk))
+        n_split = max(1, min(tiles, want))
+        chunk = -(-tiles // n_split) * tile
+        return 0, min(g, _MMA_HEADS), n_gblk, tile, chunk, -(-s // chunk)
     gc = _gc(g)
     gblk = min(g, _MAX_HEADS_PER_CTA, _MAX_PAIRS // hd // gc * gc)
     n_gblk = -(-g // gblk)
@@ -137,9 +173,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          device=dev)
     part_l = torch.empty_like(part_m)
     lib = _build.library("decode_attention")
-    fn = (lib.decode_attention_f32 if q.dtype == torch.float32
-          else lib.decode_attention_bf16)
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+    if q.dtype == torch.float32:
+        fn, grid = lib.decode_attention_f32, (gc, gblk, n_gblk, chunk,
+                                              n_split, tile)
+    else:
+        fn, grid = lib.decode_attention_bf16, (n_gblk, chunk, n_split)
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * (5 + len(grid))
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
@@ -147,9 +186,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         length.data_ptr(), out.data_ptr(),
                         part_acc.data_ptr(), part_m.data_ptr(),
-                        part_l.data_ptr(), b, s, hkv, g, hd, gc, gblk, n_gblk,
-                        chunk, n_split, tile, hd ** -0.5, stream),
-                     "decode_attention")
+                        part_l.data_ptr(), b, s, hkv, g, hd, *grid,
+                        hd ** -0.5, stream), "decode_attention")
     decode_attention.launches += 1
     return out
 

@@ -5,8 +5,10 @@ tensors; ``flash_prefill_plain`` is its plain PyTorch version (CPU tensors,
 and the kernel's reference), the formula of the reference's
 ``flash_prefill_ref``: causal scores and softmax in f32, the output rounded
 once to q's dtype.  Counterpart of the Pallas kernel in
-``repro.kernels.flash_prefill``.  No model path of either package calls it:
-the prefill attends with the blockwise einsum path.
+``repro.kernels.flash_prefill``.  bf16 runs on the tensor cores (p split
+exactly into three bf16 terms for p.v), f32 on the CUDA cores.  No model
+path of either package calls it: the prefill attends with the blockwise
+einsum path.
 
 Layout: q (B, S, Hkv, G, hd), G = H / Hkv query heads per KV head; k/v
 (B, S, Hkv, hd); out like q.  The kernel takes hd <= 128 and G <= 128.
@@ -24,7 +26,8 @@ __all__ = ["FLASH_MAX_G", "FLASH_MAX_HD", "NEG", "flash_prefill",
 
 NEG = -1e30
 _ROWS = 128          # (position, head) rows of a CTA (FP_ROWS)
-#: widest head the kernel takes (its register tiles are 8 x hd / 8 a thread)
+#: widest head the kernels take (the accumulators of a thread's rows are
+#: held in registers)
 FLASH_MAX_HD = 128
 #: most query heads per KV head (one position's heads fill at most a CTA)
 FLASH_MAX_G = _ROWS

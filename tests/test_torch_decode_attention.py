@@ -21,9 +21,12 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as pallas_decode  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.decode_attention import (_smem,  # noqa: E402
-                                                  decode_attention_plain,
-                                                  decode_splits)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    _mma_smem,
+    _smem,
+    decode_attention_plain,
+    decode_splits,
+)
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SHAPES = [(1, 1, 1, 32, 64), (2, 2, 4, 64, 128), (3, 1, 8, 64, 100),
@@ -86,19 +89,28 @@ def test_plain_length_mask_invariance(length):
 @pytest.mark.parametrize("b,hkv,g,hd,s,sms,elt", [
     (8, 4, 8, 64, 1064, 132, 2), (128, 4, 8, 64, 32768, 132, 2),
     (1, 1, 1, 32, 64, 132, 4), (2, 1, 48, 256, 300, 132, 4),
-    (3, 2, 6, 200, 5, 8, 2), (2, 1, 16, 256, 520, 132, 4)])
+    (3, 2, 6, 200, 5, 8, 2), (2, 1, 16, 256, 520, 132, 4),
+    (2, 1, 48, 256, 130, 132, 2), (2, 2, 3, 8, 7, 132, 2),
+    (4, 4, 8, 64, 32768, 132, 4)])
 def test_kernel_grid_covers_every_position_and_head(b, hkv, g, hd, s, sms,
                                                     elt):
     """The kernel's split of S and of the query heads (host arithmetic that
-    the CPU reaches): whole tiles that divide the 128 threads, every
-    position in exactly one chunk, every head in one block, each block's
-    accumulators within the 128 x 16 a CTA holds in registers, and the
-    shared memory within what a block may take."""
+    the CPU reaches): whole tiles, every position in exactly one chunk,
+    every head in one block, and the shared memory within what a block may
+    take.  bf16 (the tensor-core kernel): 16 heads a block, one mma row
+    tile, tiles of 32 positions (16 past hd 64).  f32: tiles that divide
+    the 128 threads, each block's accumulators within the 128 x 16 a CTA
+    holds in registers."""
     gc, gblk, n_gblk, tile, chunk, n_split = decode_splits(b, hkv, g, hd, s,
                                                            sms, elt)
     assert tile in (16, 32, 64) and chunk % tile == 0
     assert chunk * n_split >= s and chunk * (n_split - 1) < s
     assert gblk * n_gblk >= g and gblk * (n_gblk - 1) < g
+    if elt == 2:
+        assert gc == 0 and gblk == min(g, 16)
+        assert tile == (16 if hd > 64 else 32)
+        assert _mma_smem(hd) <= 227 * 1024
+        return
     assert gc in (1, 2, 4, 8) and gc < 2 * min(g, 8)
     gpad = -(-gblk // gc) * gc
     assert gc == 1 or gpad // gc >= 128 // tile    # every thread group scores
