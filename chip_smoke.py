@@ -19,7 +19,9 @@ Phases, each of which fails the run if it fails:
    dense oracle ``masked_topk`` (through the ``gam_score`` kernel) exactly;
    ``exact=True`` must equal ``brute``; a snapshot must round-trip
    bit-identically.  Recovery accuracy against ``brute``, the discarded
-   fraction, the scored-tile fraction and request latency are printed.
+   fraction, the scored-tile fraction, request latency and the device time
+   of ``gam_retrieve`` within a request (CUDA events around its launch
+   against the request's host clock) are printed.
 3b. The compressed catalog: the same catalog under ``quantize="int8",
    rerank_factor=4, compress_postings=True``, built on the card, answers the
    same warm-up and 8 requests.  ``gam_retrieve_q`` must launch and the f32
@@ -39,7 +41,9 @@ Phases, each of which fails the run if it fails:
    the plain version too; the int8 kernel's time at pools of 10, 40, 128
    and 256 is printed.
 4. Timings: each kernel's median time, its plain version's, and its bound
-   on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32, 989 TFLOP/s bf16).
+   on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32, 989 TFLOP/s bf16); for the
+   fused retrieval kernel also its route and its other floors (popcounts
+   at 16 a clock an SM, one pass and Q / Q_t passes over the kept tiles).
 5. LM serving: tinyllama-1.1b at full width (22 layers, d 2048, 32 / 4
    heads, d_ff 5632, vocab 32,000 padded to 32,256) in bf16 with
    ``use_decode_kernel=True``, random weights from a seed, answers
@@ -88,7 +92,10 @@ Phases, each of which fails the run if it fails:
    ``query``.  Each window prints its request p50/p99/max (host clock) and
    its queries over its wall time; launches per request, the delta size,
    compaction slices, groups, device bytes and the ``ServiceMetrics``
-   snapshot are printed too.
+   snapshot are printed too, with the device time of ``gam_retrieve``
+   within 20 more requests of the uniform layout, and ``tess_project``'s
+   launches on the main path by their rows, each size timed eagerly and in
+   a CUDA graph beside its bound.
 6b. The same service under ``quantize="int8", rerank_factor=4,
    compress_postings=True``: 3 requests, whose served ids must be the exact
    top kappa of each query's pool and equal the dense oracle wherever the
@@ -118,6 +125,7 @@ rest of the repository.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import subprocess
@@ -255,6 +263,75 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi``), for the popcount floor."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+class Spans:
+    """While active, CUDA events around every call of ``module.name``: the
+    device span of each launch, read against a request's host clock.  The
+    function's body counts its launches on the module attribute, this
+    wrapper, so the count carries over both ways."""
+
+    def __init__(self, torch, module, name, sizes=False):
+        self.torch, self.module, self.name = torch, module, name
+        self.events, self.rows = [], []
+        self.sizes = sizes
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+        torch = self.torch
+
+        def timed(*args, **kw):
+            if self.sizes:                   # rows of the first argument
+                self.rows.append(int(args[0].shape[0]))
+                return orig(*args, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        timed.launches = orig.launches
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = getattr(self.module, self.name).launches
+        setattr(self.module, self.name, self.orig)
+
+    def take(self) -> tuple[float, int]:
+        """(device ms of the spans since the last take, their number)."""
+        self.torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        n = len(self.events)
+        self.events.clear()
+        return ms, n
+
+
+def request_share(torch, serve, spans, n: int) -> dict:
+    """``n`` requests through ``serve()``: each one's host-clock latency and
+    the device time of the wrapped kernel's launches within it."""
+    rows = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        serve()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        dev, launches = spans.take()
+        rows.append((host, dev, launches))
+    host, dev, launches = (np.array(x) for x in zip(*rows))
+    return {"requests": n, "request_ms_p50": float(np.median(host)),
+            "kernel_device_ms_p50": float(np.median(dev)),
+            "kernel_share_p50": float(np.median(dev / host)),
+            "launches_per_request": int(launches.max())}
 
 
 # ------------------------------------------------------ LM serving phases
@@ -739,6 +816,7 @@ SVC_SLICE_ROWS = 1 << 18       # compaction map slice
 SVC_TARGET_BLOCKS = 2048       # repartition: blocks a shard is cut into
 SVC_INT8_REQUESTS = 3
 SVC_WINDOW = 100               # requests in each timed window
+SVC_SHARE = 20                 # requests timed for the kernel's share
 DEVICE = "cuda"                # the card; phases 6-7 run nowhere else
 
 
@@ -886,8 +964,10 @@ def phase_service(torch, report, items, centers, cfg, bucket):
                       "from a fresh gam-device build over its catalog")
 
     # --- the main path: requests, streamed mutations, compaction,
-    # repartition; the counts are read right after it
+    # repartition; the counts are read right after it.  tess_project's
+    # calls are tallied by their rows (queries, upserts, compaction slices)
     gr.gam_retrieve.launches = tp.tess_project.launches = 0
+    tess_rows = Spans(torch, tp, "tess_project", sizes=True).__enter__()
     t_stream = time.perf_counter()
     for i in range(SVC_STREAM):
         serve(next(req), via_batcher=bool(i % 2), phase="stream")
@@ -913,6 +993,15 @@ def phase_service(torch, report, items, centers, cfg, bucket):
     # changes, so it does not dilute the hot traffic the repartition reads)
     window("uniform+delta via query", via_batcher=False, seed=11)
     window("uniform+delta via batcher", via_batcher=True, seed=12)
+    # the device time of gam_retrieve within a request of this layout
+    share_batch = requests(centers, SVC_SHARE, BATCH, SIGMA, seed=14)
+    share_iter, share_got = iter(share_batch), []
+    with Spans(torch, gr, "gam_retrieve") as spans:
+        svc_share = request_share(torch, lambda: share_got.append(serve(
+            next(share_iter), via_batcher=False, phase="share",
+            check=False)), spans, SVC_SHARE)
+    for users, res in zip(share_batch, share_got):
+        check_oracle(torch, r, users, res, "share")
 
     r.compact(async_=True)
     slices = 0
@@ -948,8 +1037,24 @@ def phase_service(torch, report, items, centers, cfg, bucket):
              for u in (next(req), next(req))]
     counts = {"gam_retrieve": gr.gam_retrieve.launches,
               "tess_project": tp.tess_project.launches}
+    tess_rows.__exit__()
     for name, n in counts.items():
         fail_unless(n > 0, f"{name} never launched on the service path")
+    # tess_project at the sizes the main path gave it, with their launches
+    by_rows = collections.Counter(tess_rows.rows)
+    fail_unless(sum(by_rows.values()) == counts["tess_project"],
+                "tess_project calls and launches disagree")
+    tess_svc = []
+    for n in sorted(by_rows, key=lambda x: -by_rows[x])[:8]:
+        z = torch.randn((n, K), device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(n))
+        z = torch.where(z.abs() >= 0.5, z, 0.0)
+        b_ms, b_by = bound_ms(n * K * (4 + 1 + 4), 3 * K * n)
+        tess_svc.append({"rows": n, "launches": by_rows[n],
+                         "ms": time_ms(torch, lambda: tp.tess_project(z), 20),
+                         "graph_ms": graph_ms(torch,
+                                              lambda: tp.tess_project(z)),
+                         "bound_ms": b_ms, "bound_by": b_by})
 
     snap = ROOT / "build" / "chip_smoke_service.npz"
     t0 = time.perf_counter()
@@ -974,6 +1079,8 @@ def phase_service(torch, report, items, centers, cfg, bucket):
            "partition": {"lengths": list(part.lengths),
                          "bns": list(part.bns)},
            "snapshot_restore_s": snapshot_s, "launches": counts,
+           "gam_retrieve_in_request": svc_share,
+           "tess_project_by_rows": tess_svc,
            "metrics": r.metrics.snapshot()}
     report["service"] = svc
     m = svc["metrics"]
@@ -998,6 +1105,17 @@ def phase_service(torch, report, items, centers, cfg, bucket):
           f"heterogeneous = uniform bit for bit; snapshot -> "
           f"restore with a 64-row delta bit-identical "
           f"({snapshot_s:.1f} s); launches {counts}")
+    print(f"service: gam_retrieve within a request (uniform layout + "
+          f"delta via query, {SVC_SHARE} requests): device "
+          f"{svc_share['kernel_device_ms_p50']:.4f} ms of a "
+          f"{svc_share['request_ms_p50']:.3f} ms request (CUDA events "
+          f"around each launch, host clock around the request, p50), share "
+          f"{svc_share['kernel_share_p50']:.3f}, "
+          f"{svc_share['launches_per_request']} launches a request")
+    print("service: tess_project by rows on the main path (rows: launches, "
+          "eager ms, ms in a CUDA graph, bound ms): " + "; ".join(
+              f"{t['rows']}: {t['launches']}, {t['ms']:.4f}, "
+              f"{t['graph_ms']:.4f}, {t['bound_ms']:.5f}" for t in tess_svc))
     print("service: metrics " + json.dumps(
         {k: m[k] for k in ("n_requests", "n_batches", "qps",
                            "latency_p50_ms", "latency_p99_ms",
@@ -1332,8 +1450,10 @@ def main() -> int:
     gv, wv = got.vals.cpu().numpy(), want.vals.cpu().numpy()
     fail_unless(max_ulp(gv, wv) <= ULP, "gam_retrieve scores beyond 4 ulp")
     err_retrieve = float(np.abs(gv - wv).max())
-    print(f"gam_retrieve vs plain: rows/counts/skip exact, max ulp "
-          f"{max_ulp(gv, wv)}")
+    route = gr.retrieve_plan(BATCH, K, meta.words, KAPPA, meta.n_blocks,
+                             False, dev)
+    print(f"gam_retrieve vs plain ({route['route']} route, {route}): "
+          f"rows/counts/skip exact, max ulp {max_ulp(gv, wv)}")
 
     zt = torch.where(items_t.abs() >= THRESHOLD, items_t, 0.0).contiguous()
     pat, a = tp.tess_project(zt)
@@ -1405,6 +1525,15 @@ def main() -> int:
     for name, n in launches.items():
         fail_unless(n > 0, f"{name} never launched on the main path")
     print(f"slice: launches {launches}")
+    with Spans(torch, gr, "gam_retrieve") as spans:
+        share = request_share(torch, lambda: r.query(reqs[1]), spans,
+                              N_REQUESTS)
+    report["gam_retrieve_in_request"] = share
+    print(f"slice: gam_retrieve within a request: device "
+          f"{share['kernel_device_ms_p50']:.4f} ms of a "
+          f"{share['request_ms_p50']:.3f} ms request (CUDA events around "
+          f"the launch, host clock around the request, p50 of {N_REQUESTS}),"
+          f" share {share['kernel_share_p50']:.3f}")
 
     brute = open_retriever(RetrieverSpec(cfg=cfg, backend="brute",
                                          kappa=KAPPA), items=items,
@@ -1480,6 +1609,14 @@ def main() -> int:
     fail_unless(launches_q["gam_retrieve"] == 0,
                 "the f32 gam_retrieve kernel ran on the compressed path")
     print(f"int8: launches {launches_q}")
+    with Spans(torch, gr, "gam_retrieve_q") as spans:
+        share_q = request_share(torch, lambda: rq.query(reqs[1]), spans,
+                                N_REQUESTS)
+    report["gam_retrieve_q_in_request"] = share_q
+    print(f"int8: gam_retrieve_q within a request: device "
+          f"{share_q['kernel_device_ms_p50']:.4f} ms of a "
+          f"{share_q['request_ms_p50']:.3f} ms request, share "
+          f"{share_q['kernel_share_p50']:.3f}")
 
     qmeta = rq._retrieve_meta
     padded = torch.zeros((qmeta.n_pad, K), dtype=torch.float32)
@@ -1505,8 +1642,10 @@ def main() -> int:
     gv, wv = got_q.vals.cpu().numpy(), want_q.vals.cpu().numpy()
     fail_unless(max_ulp(gv, wv) <= ULP, "gam_retrieve_q scores beyond 4 ulp")
     err_retrieve_q = float(np.abs(gv - wv).max())
-    print(f"gam_retrieve_q vs plain: rows/counts/skip exact, max ulp "
-          f"{max_ulp(gv, wv)}")
+    route_q = gr.retrieve_plan(BATCH, K, qmeta.words, pool, qmeta.n_blocks,
+                               True, dev)
+    print(f"gam_retrieve_q vs plain ({route_q['route']} route, {route_q}): "
+          f"rows/counts/skip exact, max ulp {max_ulp(gv, wv)}")
     # a pool past the shared-memory lists: kappa-lists in global memory
     wqargs = (u0, uq_tau, uq_mask, qmeta, WIDE_POOL)
     got_w = gr.gam_retrieve_q(*wqargs, **kw)
@@ -1520,8 +1659,10 @@ def main() -> int:
     fail_unless(max_ulp(got_w.vals.cpu().numpy(),
                         want_w.vals.cpu().numpy()) <= ULP,
                 f"gam_retrieve_q at pool {WIDE_POOL} scores beyond 4 ulp")
-    print(f"gam_retrieve_q vs plain at pool {WIDE_POOL} (global-memory "
-          "lists): rows/counts/skip exact")
+    route_w = gr.retrieve_plan(BATCH, K, qmeta.words, WIDE_POOL,
+                               qmeta.n_blocks, True, dev)
+    print(f"gam_retrieve_q vs plain at pool {WIDE_POOL} ({route_w['route']} "
+          f"route: kappa-lists in global memory): rows/counts/skip exact")
     del got_w, want_w
 
     wide = gr.GAM_RETRIEVE_SMEM_KAPPA
@@ -1670,6 +1811,31 @@ def main() -> int:
          lambda: gs.gam_score_plain(u0, r._items_dev, masks0),
          bound_ms(score_bytes, 2 * K * int(masks0.sum())), err_score),
     ]
+    # the other floors of the fused kernel, beside its bound: popcounts on
+    # the CUDA cores, and the bytes of one pass and of Q / Q_t passes over
+    # the kept tiles (the fast route reads each item tile once a query tile)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_hz()
+    kept_rows = blocks * bn
+    floors = {}
+    for name, width, row_bytes, plan in (
+            ("gam_retrieve", KAPPA, 4 * K, route),
+            ("gam_retrieve_q", pool, K, route_q)):
+        one_pass = kept_rows * (words * f + 2 + row_bytes)
+        passes = -(-BATCH // plan["q_tile"]) if plan["q_tile"] else BATCH
+        floors[name] = {
+            "route": plan,
+            "popc_ms": BATCH * kept_rows * words / (16 * sms * clock) * 1e3,
+            "one_pass_bytes_ms": one_pass / HBM_BYTES_PER_S * 1e3,
+            "q_tile_passes_bytes_ms": passes * one_pass / HBM_BYTES_PER_S
+            * 1e3}
+        print(f"{name} floors at Q {BATCH}, width {width}: popcounts at 16 "
+              f"a clock an SM ({sms} SMs, {clock / 1e9:.2f} GHz) "
+              f"{floors[name]['popc_ms']:.4f} ms, one pass over the kept "
+              f"tiles {floors[name]['one_pass_bytes_ms']:.4f} ms, {passes} "
+              f"passes {floors[name]['q_tile_passes_bytes_ms']:.4f} ms; "
+              f"{plan['route']} route {plan}")
+    report["gam_retrieve_floors"] = floors
     kernels = []
     for name, replaces, kern, plain, (b_ms, b_by), err in rows:
         src = "gam_retrieve" if name == "gam_retrieve_q" else name

@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = ["DeviceIndex", "build_segment", "candidate_mask_from_table",
            "csr_to_table", "table_to_csr"]
 
@@ -128,7 +130,10 @@ class DeviceIndex:
     @staticmethod
     def build(item_indices: np.ndarray, p: int, bucket: int = 256,
               mask: np.ndarray | None = None,
-              device: str | torch.device = "cpu") -> "DeviceIndex":
+              device: str | torch.device | None = None) -> "DeviceIndex":
+        """The index on ``device`` (``None``: the card; ``"cpu"`` for the
+        plain path)."""
+        device = resolve_device(device)
         item_indices = np.asarray(item_indices)
         table, counts, spill = build_segment(item_indices, p, bucket, mask)
         return DeviceIndex(table=torch.as_tensor(table, device=device),

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.compress.quantize import dequantize_int8, quantize_int8
+from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.gam_score import NEG, dot_plain, fma_dot
 
@@ -37,7 +38,8 @@ __all__ = ["GAM_RETRIEVE_SMEM_K", "GAM_RETRIEVE_SMEM_KAPPA", "GamRetrieveResult"
            "TOPK_EMPTY_ROW", "build_retrieval_meta", "effective_bq",
            "expand_tile_skips", "export_topk", "gam_retrieve",
            "gam_retrieve_plain", "gam_retrieve_q", "gam_retrieve_q_plain",
-           "pack_patterns", "popcount32", "quantize_meta", "rerank_pool"]
+           "pack_patterns", "popcount32", "quantize_meta", "rerank_pool",
+           "retrieve_plan"]
 
 #: Hard structural-row ceiling (2^30): the reference kernel's non-candidate
 #: sentinel row; kept so both packages refuse the same catalogs.
@@ -46,11 +48,12 @@ ROW_CAPACITY = 1 << 30
 #: Exported sentinel for empty top-kappa slots (int32 max).
 TOPK_EMPTY_ROW = np.int32(np.iinfo(np.int32).max)
 
-#: Largest kappa (or int8 re-rank pool) whose per-warp lists the kernel keeps
-#: in shared memory, its fast path; wider lists live in global memory.
+#: Largest kappa (or int8 re-rank pool) whose lists the kernel keeps in
+#: shared memory: up to it the fast route (:func:`retrieve_plan`) runs where
+#: the tiles fit; past it the wide route keeps them in global memory.
 GAM_RETRIEVE_SMEM_KAPPA = 128
-#: Widest query row the kernel stages in shared memory, its fast path;
-#: wider rows are read from global memory.
+#: Widest query row the wide route stages in shared memory; wider rows are
+#: read from global memory.
 GAM_RETRIEVE_SMEM_K = 1024
 
 # item elements per chunk of the plain version (bounds its (Q, chunk) temporaries)
@@ -172,14 +175,17 @@ def quantize_meta(meta: RetrievalMeta, factors) -> RetrievalMeta:
 def build_retrieval_meta(tau, mask, p: int, *, n_rows: int | None = None,
                          spill_rows=None, bn: int = 256, factors=None,
                          quantize: str = "none",
-                         device: str | torch.device = "cpu") -> RetrievalMeta:
+                         device: str | torch.device | None = None
+                         ) -> RetrievalMeta:
     """Build the kernel's block metadata for ``n_rows`` structural rows on
-    ``device``; ``tau``/``mask`` are the (n, k) patterns of rows 0..n-1 and
+    ``device`` (``None``: the card; ``"cpu"`` for the plain path);
+    ``tau``/``mask`` are the (n, k) patterns of rows 0..n-1 and
     ``spill_rows`` the rows that are unconditional candidates.
     ``quantize="int8"`` also quantizes ``factors`` (required then) into the
     slab the int8 kernel decodes."""
     if quantize not in ("none", "int8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
+    device = resolve_device(device)
     tau = torch.as_tensor(tau, device=device)
     mask = torch.as_tensor(mask, device=device).to(torch.bool)
     n = tau.shape[0]
@@ -367,42 +373,100 @@ def _check_common(users, q_tau, q_mask, meta: RetrievalMeta, kappa: int,
     _check("spill8", meta.spill8, torch.int8, (1, meta.n_pad), dev)
 
 
+_plans: dict = {}
+
+
+def retrieve_plan(q: int, k: int, words: int, kappa: int, n_blocks: int,
+                  quantized: bool, device) -> dict:
+    """The kernel's route and grid for a call of this shape on ``device``
+    (a CUDA device): ``route`` is ``"fast"`` (query tiles against staged
+    item tiles, overlaps on the tensor cores) or ``"wide"`` (a warp per
+    query, for kappa past :data:`GAM_RETRIEVE_SMEM_KAPPA` or rows too wide
+    for the fast route's shared memory); ``q_tile``, ``splits``,
+    ``blocks_per_split``, ``smem`` bytes a CTA and ``ctas_per_sm``."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    key = (index, q, k, words, kappa, n_blocks, bool(quantized))
+    plan = _plans.get(key)
+    if plan is None:
+        out = (ctypes.c_int * 6)()
+        fn = _build.library("gam_retrieve").gam_retrieve_plan
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(index):
+            _build.check(fn(q, k, words, kappa, int(bool(quantized)),
+                            n_blocks, out), "gam_retrieve_plan")
+        plan = {"route": "fast" if out[0] else "wide", "q_tile": 16 * out[1],
+                "splits": out[2], "blocks_per_split": out[3], "smem": out[4],
+                "ctas_per_sm": out[5]}
+        _plans[key] = plan
+    return plan
+
+
+def _entry(name: str):
+    """The library's entry ``name`` with its argument types set."""
+    fn = getattr(_build.library("gam_retrieve"), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 17
+                       + [ctypes.c_int] * 3 + [ctypes.c_int64] * 2
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _alive_arg(alive, meta: RetrievalMeta, device):
+    """``alive`` as the kernel reads it: None (every row alive) or a
+    contiguous (n_rows,) bool tensor on ``device``."""
+    if alive is None:
+        return None
+    a = torch.as_tensor(alive, device=device)
+    if a.dtype != torch.bool:
+        a = a.to(torch.bool)
+    if tuple(a.shape) != (meta.n_rows,):
+        raise ValueError(f"gam_retrieve: alive must have shape "
+                         f"({meta.n_rows},), got {tuple(a.shape)}")
+    return a.contiguous()
+
+
 def _launch(entry: str, users, rows: list, q_tau, q_mask,
             meta: RetrievalMeta, kappa: int, min_overlap: int, alive,
             bq: int) -> GamRetrieveResult:
     """Allocate the outputs and launch ``entry`` of the library; ``rows``
-    are the factor tensors the entry reads (f32 rows, or slab + scales)."""
+    are the factor tensors the entry reads (f32 rows, or slab + scales).
+    The query bitsets are packed on the card by the library."""
     dev = users.device
     q, k = users.shape
     nb = meta.n_blocks
     bq = effective_bq(q, bq)
     qblocks = -(-q // bq)
-    q_bits = pack_patterns(q_tau, q_mask, meta.p)
-    alive8 = _alive8(alive, meta, dev)
-    groups = -(-q // 8)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_split = -(-nb // min(nb, max(1, -(-sms * 8 // groups))))
-    splits = -(-nb // per_split)
-    skip = torch.empty((qblocks, nb), dtype=torch.bool, device=dev)
-    counts = torch.empty((q, nb), dtype=torch.int32, device=dev)
-    part_s = torch.empty((splits, q, kappa), dtype=torch.float32, device=dev)
-    part_r = torch.empty((splits, q, kappa), dtype=torch.int32, device=dev)
-    vals = torch.empty((q, kappa), dtype=torch.float32, device=dev)
-    out_rows = torch.empty((q, kappa), dtype=torch.int32, device=dev)
-    ptrs = [t.data_ptr() for t in (
-        users, *rows, q_bits, meta.item_bits_t, meta.block_union,
-        meta.block_spill, meta.spill8, alive8, skip, counts, part_s, part_r,
-        vals, out_rows)]
-    fn = getattr(_build.library("gam_retrieve"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64]
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    alive = _alive_arg(alive, meta, dev)
+    quantized = entry == "gam_retrieve_i8"
+    plan = retrieve_plan(q, k, meta.words, kappa, nb, quantized, dev)
+    splits = plan["splits"]
+    # one allocation for the scratch and the outputs (int32 words)
+    sizes = (q * meta.words, q * nb, splits * q * kappa, splits * q * kappa,
+             q * kappa, q * kappa, -(-qblocks * nb // 4))
+    ws = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    q_bits, counts, part_s, part_r, vals, out_rows, skip = torch.split(
+        ws, sizes)
+    counts = counts.view(q, nb)
+    vals = vals.view(torch.float32).view(q, kappa)
+    out_rows = out_rows.view(q, kappa)
+    skip = skip.view(torch.uint8)[:qblocks * nb].view(torch.bool).view(
+        qblocks, nb)
+    factors, scales = (rows[0], rows[1]) if quantized else (rows[0], None)
+    ptrs = [None if t is None else t.data_ptr() for t in (
+        users, factors, scales, q_tau, q_mask, meta.item_bits_t,
+        meta.block_union, meta.block_spill, meta.spill8, alive, q_bits, skip,
+        counts, part_s, part_r, vals, out_rows)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(fn(*ptrs, q, k, meta.words, meta.n_pad, meta.bn, nb, bq,
-                        qblocks, kappa, int(min_overlap), splits, per_split,
-                        stream), entry)
+        _build.check(_entry(entry)(
+            *ptrs, q, k, meta.words, meta.n_pad, meta.n_rows, meta.bn, nb,
+            bq, qblocks, kappa, int(min_overlap),
+            int(plan["route"] == "fast"), plan["q_tile"] // 16, splits,
+            plan["blocks_per_split"], stream), entry)
     return GamRetrieveResult(vals, out_rows, counts, skip)
 
 

@@ -268,6 +268,127 @@ def test_gam_retrieve_q_kernel_equals_plain_wide_pool(
     assert _max_ulp(got.vals, want.vals) <= 4
 
 
+# the fast route's edges (csrc/gam_retrieve.cu, tile_kernel): queries that
+# do not fill a 16-query tile, words across the 256-bit chunk of the 1-bit
+# mma, min_overlap 0 with pad rows and items, n_rows cutting into a block,
+# int8 blocks whose slab bytes bn * k are not a multiple of 16, spill rows
+# (a 16-entry bucket)
+EDGE_CASES = [
+    # n, n_rows, q, k, scheme, kappa, pool, mo, bn, bq, words
+    (700, None, 1, 10, "parse_tree", 10, 40, 2, 64, 32, 7),
+    (700, None, 9, 11, "parse_tree", 10, 40, 1, 96, 8, 8),
+    (900, None, 17, 16, "one_hot_dary8", 12, 24, 2, 128, 32, 9),
+    (600, None, 255, 16, "parse_tree", 10, 40, 2, 64, 32, 17),
+    (500, None, 33, 10, "parse_tree", 10, 40, 0, 96, 12, 7),
+    (300, 333, 20, 9, "parse_tree", 8, 32, 0, 8, 8, 6),
+    (400, None, 40, 10, "parse_tree", 10, 40, 2, 12, 16, 7),
+    (500, None, 64, 11, "parse_tree", 10, 40, 1, 24, 8, 8),
+]
+
+
+def _edge_catalog(dev, n, n_rows, q, k, scheme, bn, words):
+    d = 1                                   # "one_hot_dary8": D-ary, d 8
+    if scheme.startswith("one_hot_dary"):
+        scheme, d = "one_hot_dary", int(scheme[len("one_hot_dary"):])
+    cfg = GamConfig(k=k, scheme=scheme, d=d, threshold=0.2)
+    rows = n_rows or n
+    items = torch.from_numpy(unit_factors(rows, k, rows + k)).to(dev)
+    users = torch.from_numpy(unit_factors(q, k, rows + k + 1)).to(dev)
+    tau, vals = sparse_map(items[:n], cfg)
+    q_tau, q_vals = sparse_map(users, cfg)
+    _, _, spill = build_segment(tau.cpu().numpy(), cfg.p, 16,
+                                (vals != 0).cpu().numpy())
+    meta = gr.build_retrieval_meta(tau, vals != 0, cfg.p, n_rows=rows,
+                                   spill_rows=spill, bn=bn, factors=items,
+                                   quantize="int8", device=dev)
+    assert meta.words == words
+    return items, users, q_tau, q_vals != 0, meta
+
+
+def _both_entries_equal_plain(dev, items, users, q_tau, q_mask, meta, kappa,
+                              pool, **kw):
+    """Both entries on the fast route, each equal to its plain version
+    (f32: every field bit for bit; int8: rows, counts and skip map exact,
+    scores within 4 ulp), with and without an alive mask."""
+    q, k = users.shape
+    for width, i8 in ((kappa, False), (pool, True)):
+        plan = gr.retrieve_plan(q, k, meta.words, width, meta.n_blocks, i8,
+                                dev)
+        assert plan["route"] == "fast", plan
+    alive = torch.ones(meta.n_rows, dtype=torch.bool, device=dev)
+    alive[::7] = False
+    for al in (None, alive):
+        args = (users, items, q_tau, q_mask, meta, kappa)
+        got = gr.gam_retrieve(*args, alive=al, **kw)
+        torch.cuda.synchronize()
+        want = gr.gam_retrieve_plain(*args, alive=al, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        qargs = (users, q_tau, q_mask, meta, pool)
+        got = gr.gam_retrieve_q(*qargs, alive=al, **kw)
+        torch.cuda.synchronize()
+        want = gr.gam_retrieve_q_plain(*qargs, alive=al, **kw)
+        for name in ("rows", "blk_counts", "skipped"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert _max_ulp(got.vals, want.vals) <= 4
+
+
+@pytest.mark.parametrize("n,n_rows,q,k,scheme,kappa,pool,mo,bn,bq,words",
+                         EDGE_CASES)
+def test_gam_retrieve_fast_route_edges_equal_plain(
+        dev, n, n_rows, q, k, scheme, kappa, pool, mo, bn, bq, words):
+    items, users, q_tau, q_mask, meta = _edge_catalog(dev, n, n_rows, q, k,
+                                                      scheme, bn, words)
+    _both_entries_equal_plain(dev, items, users, q_tau, q_mask, meta, kappa,
+                              pool, min_overlap=mo, bq=bq)
+
+
+def test_gam_retrieve_fast_route_ties_break_by_lowest_row(dev):
+    """Forty copies of eight rows: equal scores by row ascending, across
+    tiles, splits and the merge (the reference's
+    test_score_ties_break_by_lowest_row, on the card)."""
+    base = unit_factors(8, 16, 0)
+    items = torch.from_numpy(np.concatenate([base] * 40)).to(dev)
+    users = torch.from_numpy(base[:4]).to(dev)
+    tau, vals = sparse_map(items, CFG)
+    q_tau, q_vals = sparse_map(users, CFG)
+    meta = gr.build_retrieval_meta(tau, vals != 0, CFG.p, bn=16,
+                                   factors=items, quantize="int8", device=dev)
+    _both_entries_equal_plain(dev, items, users, q_tau, q_vals != 0, meta,
+                              12, 24, min_overlap=1, bq=8)
+    got = gr.gam_retrieve(users, items, q_tau, q_vals != 0, meta, 12,
+                          min_overlap=1, bq=8)
+    rows, s = got.rows.cpu().numpy(), got.vals.cpu().numpy()
+    ties = s[:, :-1] == s[:, 1:]
+    assert ties.any()
+    assert (rows[:, :-1][ties] < rows[:, 1:][ties]).all()
+
+
+def test_gam_retrieve_fast_route_block_skipped_by_one_bq_tile(dev):
+    """A clustered catalog, bq 8 and 32 queries (one 32-query CTA over four
+    bq-tiles): blocks that some of the CTA's bq-tiles skip and others keep
+    are computed, and every output still equals the plain version."""
+    rng = np.random.default_rng(2)
+    centers = unit_factors(8, 16, 7)
+    items = np.repeat(centers, 64, axis=0) + \
+        0.04 * rng.normal(size=(512, 16)).astype(np.float32)
+    items /= np.linalg.norm(items, axis=1, keepdims=True)
+    users = centers[np.repeat(np.arange(4), 8)] + \
+        0.04 * rng.normal(size=(32, 16)).astype(np.float32)
+    users /= np.linalg.norm(users, axis=1, keepdims=True)
+    items = torch.from_numpy(items).to(dev)
+    users = torch.from_numpy(users.astype(np.float32)).to(dev)
+    tau, vals = sparse_map(items, CFG)
+    q_tau, q_vals = sparse_map(users, CFG)
+    meta = gr.build_retrieval_meta(tau, vals != 0, CFG.p, bn=64,
+                                   factors=items, quantize="int8", device=dev)
+    sk = gr.gam_retrieve(users, items, q_tau, q_vals != 0, meta, 10,
+                         min_overlap=4, bq=8).skipped.cpu().numpy()
+    assert (sk.any(axis=0) & ~sk.all(axis=0)).any()
+    _both_entries_equal_plain(dev, items, users, q_tau, q_vals != 0, meta,
+                              10, 40, min_overlap=4, bq=8)
+
+
 def test_int8_gam_device_retriever_on_card_equals_cpu(dev):
     spec = RetrieverSpec(cfg=CFG, backend="gam-device", min_overlap=2,
                          quantize="int8", compress_postings=True,

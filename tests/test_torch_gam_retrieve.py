@@ -51,7 +51,7 @@ def _metas(tau, mask, spill, bn, n_rows=None):
     jm = jgr.build_retrieval_meta(tau, mask, CFG.p, n_rows=n_rows,
                                   spill_rows=spill, bn=bn)
     tm = tgr.build_retrieval_meta(tau, mask, CFG.p, n_rows=n_rows,
-                                  spill_rows=spill, bn=bn)
+                                  spill_rows=spill, bn=bn, device="cpu")
     return jm, tm
 
 
@@ -188,7 +188,7 @@ def test_plain_gam_retrieve_chunked_walk_matches_one_chunk(monkeypatch):
     users = unit_factors(9, 16, 22)
     tau, mask = _mapped(items)
     q_tau, q_mask = _mapped(users)
-    tm = tgr.build_retrieval_meta(tau, mask, CFG.p, bn=32)
+    tm = tgr.build_retrieval_meta(tau, mask, CFG.p, bn=32, device="cpu")
     args = (_t(users), _t(items), _t(q_tau), _t(q_mask), tm, 10)
     whole = tgr.gam_retrieve_plain(*args, min_overlap=2)
     monkeypatch.setattr(tgr, "_PLAIN_CHUNK", 9 * 32)      # one block a chunk
@@ -216,13 +216,15 @@ def test_row_capacity_and_host_helpers_match_reference():
     assert tgr.ROW_CAPACITY == jgr.ROW_CAPACITY
     assert tgr.TOPK_EMPTY_ROW == jgr.TOPK_EMPTY_ROW
     empty = (np.zeros((0, 16), np.int32), np.zeros((0, 16), bool))
-    for mod in (jgr, tgr):
+    for mod, on in ((jgr, {}), (tgr, {"device": "cpu"})):
         with pytest.raises(mod.RowCapacityError):
             mod.build_retrieval_meta(*empty, CFG.p,
-                                     n_rows=mod.ROW_CAPACITY + 1, bn=256)
+                                     n_rows=mod.ROW_CAPACITY + 1, bn=256,
+                                     **on)
         with pytest.raises(ValueError):         # fewer rows than patterns
             mod.build_retrieval_meta(np.zeros((3, 16), np.int32),
-                                     np.ones((3, 16), bool), CFG.p, n_rows=2)
+                                     np.ones((3, 16), bool), CFG.p, n_rows=2,
+                                     **on)
     for q in (1, 7, 8, 9, 33, 256):
         for bq in (8, 12, 32, 64):
             assert tgr.effective_bq(q, bq) == jgr.effective_bq(q, bq)
@@ -265,7 +267,7 @@ def test_masked_topk_and_candidate_masks_match_reference(n, q, kappa, mo,
     tau, mask = _mapped(items)
     q_tau, q_mask = _mapped(users)
     jdev = JDeviceIndex.build(tau, CFG.p, bucket, mask=mask)
-    tdev = DeviceIndex.build(tau, CFG.p, bucket, mask=mask)
+    tdev = DeviceIndex.build(tau, CFG.p, bucket, mask=mask, device="cpu")
     for f in ("table", "counts", "spill"):
         np.testing.assert_array_equal(getattr(tdev, f).numpy(),
                                       np.asarray(getattr(jdev, f)))
@@ -301,6 +303,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert tess_project.tess_project.launches == 0
 
 
+def test_builders_default_to_the_card_and_raise_without_one(monkeypatch):
+    """``build_retrieval_meta`` and ``DeviceIndex.build`` without a device
+    mean the card: with none present they raise, naming ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tau, mask = _mapped(unit_factors(40, 16, 9))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgr.build_retrieval_meta(tau, mask, CFG.p, bn=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceIndex.build(tau, CFG.p, 64, mask=mask)
+    assert tgr.build_retrieval_meta(tau, mask, CFG.p, bn=8,
+                                    device="cpu").n_pad == 40
+    assert DeviceIndex.build(tau, CFG.p, 64, mask=mask,
+                             device="cpu").table.device.type == "cpu"
+
+
 # ------------------------------------------------------------ the int8 path
 
 
@@ -308,7 +325,7 @@ def _q_metas(tau, mask, spill, bn, factors, n_rows=None):
     kw = dict(n_rows=n_rows, spill_rows=spill, bn=bn, factors=factors,
               quantize="int8")
     return (jgr.build_retrieval_meta(tau, mask, CFG.p, **kw),
-            tgr.build_retrieval_meta(tau, mask, CFG.p, **kw))
+            tgr.build_retrieval_meta(tau, mask, CFG.p, **kw, device="cpu"))
 
 
 def _assert_slab_equal(jm, tm):
@@ -330,18 +347,19 @@ def test_build_retrieval_meta_int8_slab_matches_reference(n, n_rows, bn):
     _assert_slab_equal(jm, tm)
     # quantize_meta on existing metadata attaches the same slab
     _assert_slab_equal(jm, tgr.quantize_meta(
-        tgr.build_retrieval_meta(tau, mask, CFG.p, n_rows=n_rows, bn=bn),
+        tgr.build_retrieval_meta(tau, mask, CFG.p, n_rows=n_rows, bn=bn,
+                                 device="cpu"),
         _t(items)))
 
 
 def test_int8_meta_errors_match_reference():
     tau, mask = _mapped(unit_factors(40, 16, 3))
-    for mod in (jgr, tgr):
+    for mod, on in ((jgr, {}), (tgr, {"device": "cpu"})):
         with pytest.raises(ValueError, match="quantize"):
-            mod.build_retrieval_meta(tau, mask, CFG.p, quantize="int4")
+            mod.build_retrieval_meta(tau, mask, CFG.p, quantize="int4", **on)
         with pytest.raises(ValueError, match="factor slab"):
-            mod.build_retrieval_meta(tau, mask, CFG.p, quantize="int8")
-        meta = mod.build_retrieval_meta(tau, mask, CFG.p, bn=8)
+            mod.build_retrieval_meta(tau, mask, CFG.p, quantize="int8", **on)
+        meta = mod.build_retrieval_meta(tau, mask, CFG.p, bn=8, **on)
         with pytest.raises(ValueError, match="n_pad"):
             mod.quantize_meta(meta, np.zeros((meta.n_pad + 1, 16), np.float32))
     with pytest.raises(ValueError, match="int8 slab"):
@@ -423,7 +441,7 @@ def test_plain_gam_retrieve_q_chunked_walk_matches_one_chunk(monkeypatch):
     tau, mask = _mapped(items)
     q_tau, q_mask = _mapped(users)
     tm = tgr.build_retrieval_meta(tau, mask, CFG.p, bn=32, factors=items,
-                                  quantize="int8")
+                                  quantize="int8", device="cpu")
     args = (_t(users), _t(q_tau), _t(q_mask), tm, 40)
     whole = tgr.gam_retrieve_q_plain(*args, min_overlap=2)
     monkeypatch.setattr(tgr, "_PLAIN_CHUNK", 9 * 32)      # one block a chunk
@@ -465,7 +483,7 @@ def test_int8_kernel_wrapper_refuses_cpu_tensors():
     items = unit_factors(64, 16, 1)
     tau, mask = _mapped(items)
     tm = tgr.build_retrieval_meta(tau, mask, CFG.p, bn=32, factors=items,
-                                  quantize="int8")
+                                  quantize="int8", device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         tgr.gam_retrieve_q(_t(items[:2]), _t(tau[:2]), _t(mask[:2]), tm, 10)
     assert tgr.gam_retrieve_q.launches == 0
