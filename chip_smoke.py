@@ -9,7 +9,10 @@ Phases, each of which fails the run if it fails:
    checkout into ``build/repro_torch/<hash>/``, one process per source.
 2. Kernels against their plain PyTorch versions at the slice's shapes:
    ``gam_retrieve`` (rows, counts and skip map exact, scores within 4 ulp),
-   ``tess_project`` (exact except certified near-ties) and ``gam_score``.
+   ``tess_project`` (exact except certified near-ties) and ``gam_score``
+   (f32 and bf16 within 1e-6; the elements that differ at all are counted:
+   the plain version's f64 emulation of an fma double-rounds about one step
+   in 2^29).
 3. The slice: a 1,048,576-item catalog of the paper's schema (k=10,
    parse_tree, threshold 0.2, min_overlap 2, kappa 10), cluster-sorted with
    64 clusters at sigma 0.05, posting bucket sized to the longest list, is
@@ -18,7 +21,7 @@ Phases, each of which fails the run if it fails:
    counts of all three kernels must move; the served ids must equal the
    dense oracle ``masked_topk`` (through the ``gam_score`` kernel) exactly;
    ``exact=True`` must equal ``brute``; a snapshot must round-trip
-   bit-identically.  Recovery accuracy against ``brute``, the discarded
+   bit-identically.  ``tess_project``'s launches are counted by rows.  Recovery accuracy against ``brute``, the discarded
    fraction, the scored-tile fraction, request latency and the device time
    of ``gam_retrieve`` within a request (CUDA events around its launch
    against the request's host clock) are printed.
@@ -43,7 +46,11 @@ Phases, each of which fails the run if it fails:
 4. Timings: each kernel's median time, its plain version's, and its bound
    on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32, 989 TFLOP/s bf16); for the
    fused retrieval kernel also its route and its other floors (popcounts
-   at 16 a clock an SM, one pass and Q / Q_t passes over the kept tiles).
+   at 16 a clock an SM, one pass and Q / Q_t passes over the kept tiles);
+   for ``tess_project`` (1,048,576 rows) and ``gam_score`` (the oracle's
+   256 x 1,048,576) also the time in a CUDA graph, and for ``gam_score``
+   its yardstick ``torch.where(mask != 0, u @ v.T, NEG)`` (two PyTorch
+   calls, TF32 off; the port never calls it).
 5. LM serving: tinyllama-1.1b at full width (22 layers, d 2048, 32 / 4
    heads, d_ff 5632, vocab 32,000 padded to 32,256) in bf16 with
    ``use_decode_kernel=True``, random weights from a seed, answers
@@ -67,7 +74,10 @@ Phases, each of which fails the run if it fails:
    batch 8, prompts of 128, 16 new tokens.  ``tess_project`` and
    ``gam_score`` must launch; each step's ids must equal ``masked_topk`` on
    the same masks; both kernels are held against their plain versions at
-   this path's shapes.  Vocab rows scored per step, the discarded fraction
+   this path's shapes: ``tess_project`` on the vocab (32,000 x 512, one
+   launch) and on one step's hidden states (8 x 512, a launch a step),
+   ``gam_score`` at 8 x 32,000 x 512, each timed eagerly and in a CUDA
+   graph (``gam_score`` beside its yardstick).  Vocab rows scored per step, the discarded fraction
    and the agreement with the exact head are printed.
 6. The service tier: the same catalog, schema and request generator behind
    ``open_retriever(RetrieverSpec(backend="sharded", n_shards=8,
@@ -95,7 +105,9 @@ Phases, each of which fails the run if it fails:
    snapshot are printed too, with the device time of ``gam_retrieve``
    within 20 more requests of the uniform layout, and ``tess_project``'s
    launches on the main path by their rows, each size timed eagerly and in
-   a CUDA graph beside its bound.
+   a CUDA graph beside its bound; a request's queries (256 rows), a
+   compaction slice (262,144) and the largest rebuild are held against the
+   plain version and join the ``kernels`` line.
 6b. The same service under ``quantize="int8", rerank_factor=4,
    compress_postings=True``: 3 requests, whose served ids must be the exact
    top kappa of each query's pool and equal the dense oracle wherever the
@@ -263,6 +275,13 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def matmul_where(torch, u, v, mask):
+    """``gam_score``'s function as two PyTorch calls, its yardstick (TF32 is
+    off): a full matrix product, then the mask.  The port never calls it."""
+    from repro_torch.kernels.gam_score import NEG
+    return torch.where(mask != 0, u @ v.T, NEG)
 
 
 def sm_clock_hz() -> float:
@@ -692,6 +711,7 @@ def phase_gam_head(torch, report, keep):
                      gam_threshold=1.5, gam_min_overlap=2)
     for fn in (tp.tess_project, gs.gam_score, da.decode_attention):
         fn.launches = 0
+    tess_rows = Spans(torch, tp, "tess_project", sizes=True).__enter__()
     t0 = time.perf_counter()
     eng = Engine(cfg, params, sc, capacity=capacity)
     torch.cuda.synchronize()
@@ -701,6 +721,11 @@ def phase_gam_head(torch, report, keep):
     launches = {"tess_project": tp.tess_project.launches,
                 "gam_score": gs.gam_score.launches,
                 "decode_attention": da.decode_attention.launches}
+    tess_rows.__exit__()
+    tess_by_rows = collections.Counter(tess_rows.rows)
+    fail_unless(sum(tess_by_rows.values()) == launches["tess_project"]
+                and tess_by_rows[LM_BATCH] > 0,
+                f"tess_project by rows on the GAM-head path {tess_by_rows}")
     fail_unless(launches["tess_project"] > 0 and launches["gam_score"] > 0,
                 f"the GAM head's kernels did not launch: {launches}")
     fail_unless(launches["decode_attention"] == cfg.n_layers * (GAM_NEW - 1),
@@ -755,30 +780,59 @@ def phase_gam_head(torch, report, keep):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     err_score = float((got - want).abs().max())
+    differ_score = int((got != want).sum())
+    # one step's map: the normalised hidden states, thresholded as the
+    # head's sparse_map does, LM_BATCH rows at k = d_model
+    hn = h / (torch.sqrt((h * h).sum(-1, keepdim=True)) + 1e-9)
+    z_step = torch.where(hn.abs() >= head.cfg.threshold, hn, 0.0)
+    pat8, a8 = tp.tess_project(z_step)
+    pat8_p, a8_p = tp.tess_project_plain(z_step)
+    torch.cuda.synchronize()
+    differ8 = (pat8 != pat8_p).any(dim=1).cpu().numpy()
+    fail_unless(near_tie_rows(z_step[np.nonzero(differ8)[0]].cpu().numpy())
+                .all(),
+                "tess_project (head step) rows differ and are not near-ties")
+    same8 = torch.as_tensor(~differ8, device=dev)
+    err_tess8 = float((a8[same8] - a8_p[same8]).abs().max())
+    fail_unless(err_tess8 == 0.0, "tess_project (head step) a differs")
     f = 4
     v, k = zt.shape
-    rows = [
-        {"name": "tess_project@k512", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/tess_project.cu",
-         "replaces": "src/repro/kernels/tess_project.py:57",
-         "launches": launches["tess_project"], "max_abs_err": err_tess,
-         "ms": time_ms(torch, lambda: tp.tess_project(zt), 20),
-         "plain_ms": time_ms(torch, lambda: tp.tess_project_plain(zt), 3)},
-        {"name": "gam_score@lm_head", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/gam_score.cu",
-         "replaces": "src/repro/kernels/gam_score.py:60",
-         "launches": launches["gam_score"], "max_abs_err": err_score,
-         "ms": time_ms(torch, lambda: gs.gam_score(h, head.raw_embed, mask),
-                       20),
-         "plain_ms": time_ms(torch, lambda: gs.gam_score_plain(
-             h, head.raw_embed, mask), 3)},
-    ]
-    for row, (n_bytes, flops) in zip(rows, [
-            (v * k * (f + 1 + f), 3 * k * v),
-            (LM_BATCH * k * f + v * k * f + LM_BATCH * v * (1 + f),
-             2 * k * int(mask.sum()))]):
+    shapes = [("tess_project@k512", "tess_project", tess_by_rows[v], err_tess,
+               lambda: tp.tess_project(zt), lambda: tp.tess_project_plain(zt),
+               (v * k * (f + 1 + f), 3 * k * v)),
+              ("tess_project@head_step", "tess_project",
+               tess_by_rows[LM_BATCH], err_tess8,
+               lambda: tp.tess_project(z_step),
+               lambda: tp.tess_project_plain(z_step),
+               (LM_BATCH * k * (f + 1 + f), 3 * k * LM_BATCH)),
+              ("gam_score@lm_head", "gam_score", launches["gam_score"],
+               err_score, lambda: gs.gam_score(h, head.raw_embed, mask),
+               lambda: gs.gam_score_plain(h, head.raw_embed, mask),
+               (LM_BATCH * k * f + v * k * f + LM_BATCH * v * (1 + f),
+                2 * k * int(mask.sum())))]
+    rows = []
+    for name, src, n_launch, err, kern, plain, (n_bytes, flops) in shapes:
         b_ms, b_by = bound_ms(n_bytes, flops)
-        row.update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": ("src/repro/kernels/tess_project.py:57"
+                         if src == "tess_project"
+                         else "src/repro/kernels/gam_score.py:60"),
+            "launches": n_launch, "max_abs_err": err,
+            "ms": time_ms(torch, kern, 20),
+            "graph_ms": graph_ms(torch, kern),
+            "plain_ms": time_ms(torch, plain, 3), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
+    rows[-1]["yardstick_ms"] = time_ms(torch, lambda: matmul_where(
+        torch, h, head.raw_embed, mask), 20)
+    for row in rows:
+        print(f"gam head: {row['name']}: {row['launches']} launches, "
+              f"{row['ms']:.4f} ms, in a CUDA graph {row['graph_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+              f"plain {row['plain_ms']:.3f} ms"
+              + (f", matmul + where (two calls) {row['yardstick_ms']:.4f} ms"
+                 if "yardstick_ms" in row else ""))
     gam = {"config": GAM_LM, "vocab": cfg.vocab, "p": head.cfg.p,
            "table_bytes": head.index.table.numel() * 4,
            "bitset_bytes": (head.retriever._retrieve_meta.item_bits_t.numel()
@@ -789,6 +843,8 @@ def phase_gam_head(torch, report, keep):
            "teacher_forced_pick_agree_exact": float(np.mean(tf_agree)),
            "free_running_token_agree_exact": agree,
            "tess_project_near_tie_rows": int(differ.sum()),
+           "tess_project_by_rows": dict(tess_by_rows),
+           "gam_score_elements_differing": differ_score,
            "prefill_ms": res.prefill_ms, "step_ms": res.step_ms}
     report["gam_head"] = gam
     print(f"gam head: {LM_ARCH} narrowed to {GAM_LM} at vocab {cfg.vocab} "
@@ -798,8 +854,10 @@ def phase_gam_head(torch, report, keep):
           f"step, discard fraction {res.discard_frac:.4f}, head pick = exact "
           f"pick on {gam['teacher_forced_pick_agree_exact']:.4f} of "
           f"teacher-forced steps, free-running tokens agree with the exact "
-          f"head on {agree:.4f}; launches {launches}; tess_project near-tie "
-          f"rows {int(differ.sum())} of {v}")
+          f"head on {agree:.4f}; launches {launches}, tess_project by rows "
+          f"{dict(tess_by_rows)}; tess_project near-tie rows "
+          f"{int(differ.sum())} of {v}; gam_score elements differing from "
+          f"plain {differ_score} of {got.numel()}")
     keep["patterns_d512"] = pat.T.contiguous()
     del eng, head, params
     torch.cuda.empty_cache()
@@ -1044,7 +1102,10 @@ def phase_service(torch, report, items, centers, cfg, bucket):
     by_rows = collections.Counter(tess_rows.rows)
     fail_unless(sum(by_rows.values()) == counts["tess_project"],
                 "tess_project calls and launches disagree")
-    tess_svc = []
+    tess_svc, kernel_rows = [], []
+    # the kernels line carries a request's queries, a compaction slice and
+    # the largest rebuild
+    named = {BATCH, SVC_SLICE_ROWS, max(by_rows)} & set(by_rows)
     for n in sorted(by_rows, key=lambda x: -by_rows[x])[:8]:
         z = torch.randn((n, K), device=DEVICE,
                         generator=torch.Generator(DEVICE).manual_seed(n))
@@ -1055,6 +1116,27 @@ def phase_service(torch, report, items, centers, cfg, bucket):
                          "graph_ms": graph_ms(torch,
                                               lambda: tp.tess_project(z)),
                          "bound_ms": b_ms, "bound_by": b_by})
+        if n not in named:
+            continue
+        pat, a = tp.tess_project(z)
+        pat_p, a_p = tp.tess_project_plain(z)
+        torch.cuda.synchronize()
+        differ = (pat != pat_p).any(dim=1).cpu().numpy()
+        fail_unless(near_tie_rows(z[np.nonzero(differ)[0]].cpu().numpy())
+                    .all(),
+                    f"tess_project ({n} rows) rows differ and are not "
+                    "near-ties")
+        same = torch.as_tensor(~differ, device=DEVICE)
+        err = float((a[same] - a_p[same]).abs().max())
+        fail_unless(err == 0.0, f"tess_project ({n} rows) a differs")
+        kernel_rows.append({
+            "name": f"tess_project@service_{n}rows", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tess_project.cu",
+            "replaces": "src/repro/kernels/tess_project.py:57",
+            "launches": by_rows[n], "max_abs_err": err,
+            "ms": tess_svc[-1]["ms"], "graph_ms": tess_svc[-1]["graph_ms"],
+            "plain_ms": time_ms(torch, lambda: tp.tess_project_plain(z), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
     snap = ROOT / "build" / "chip_smoke_service.npz"
     t0 = time.perf_counter()
@@ -1125,6 +1207,7 @@ def phase_service(torch, report, items, centers, cfg, bucket):
                            "n_compact_slices", "n_repartitions")}))
     del r, back
     torch.cuda.empty_cache()
+    return kernel_rows
 
 
 def phase_service_int8(torch, report, items, centers, cfg, bucket):
@@ -1403,6 +1486,7 @@ def main() -> int:
     from repro_torch.retriever import RetrieverSpec, open_retriever
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     report: dict = {"device": torch.cuda.get_device_name(0)}
 
     # ---------------------------------------------------------- 1. build
@@ -1478,17 +1562,24 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.testing.assert_close(sc, sc_p, rtol=1e-6, atol=1e-6)
     err_score = float((sc - sc_p).abs().max())
+    differ_score = int((sc != sc_p).sum())
     ub, vb = u0.to(torch.bfloat16), r0._items_dev.to(torch.bfloat16)
-    torch.testing.assert_close(gs.gam_score(ub, vb, masks0),
-                               gs.gam_score_plain(ub, vb, masks0),
-                               rtol=1e-6, atol=1e-6)
+    sc_b, sc_bp = gs.gam_score(ub, vb, masks0), gs.gam_score_plain(ub, vb,
+                                                                  masks0)
+    torch.testing.assert_close(sc_b, sc_bp, rtol=1e-6, atol=1e-6)
+    differ_b = int((sc_b != sc_bp).sum())
     torch.cuda.synchronize()
-    print(f"gam_score vs plain: f32 max abs err {err_score}, bf16 allclose")
-    del sc, sc_p, r0
+    report["gam_score_elements_differing"] = {"f32": differ_score,
+                                              "bf16": differ_b}
+    print(f"gam_score vs plain: f32 max abs err {err_score}, {differ_score} "
+          f"of {sc.numel()} elements differ at all (the plain version's f64 "
+          f"double rounding); bf16 allclose, {differ_b} differ")
+    del sc, sc_p, sc_b, sc_bp, r0
 
     # ------------------------------------------------------- 3. the slice
     for fn in (gr.gam_retrieve, tp.tess_project, gs.gam_score):
         fn.launches = 0
+    tess_rows = Spans(torch, tp, "tess_project", sizes=True).__enter__()
     t0 = time.perf_counter()
     r = open_retriever(spec, items=items, device="cuda")
     torch.cuda.synchronize()
@@ -1522,9 +1613,14 @@ def main() -> int:
     launches = {"gam_retrieve": gr.gam_retrieve.launches,
                 "tess_project": tp.tess_project.launches,
                 "gam_score": gs.gam_score.launches}
+    tess_rows.__exit__()
+    tess_by_rows = collections.Counter(tess_rows.rows)
     for name, n in launches.items():
         fail_unless(n > 0, f"{name} never launched on the main path")
-    print(f"slice: launches {launches}")
+    fail_unless(sum(tess_by_rows.values()) == launches["tess_project"],
+                "tess_project calls and launches disagree")
+    print(f"slice: launches {launches}; tess_project by rows "
+          f"{dict(tess_by_rows)}")
     with Spans(torch, gr, "gam_retrieve") as spans:
         share = request_share(torch, lambda: r.query(reqs[1]), spans,
                               N_REQUESTS)
@@ -1837,15 +1933,29 @@ def main() -> int:
               f"{plan['route']} route {plan}")
     report["gam_retrieve_floors"] = floors
     kernels = []
+    launches["tess_project@1M"] = tess_by_rows[N_ITEMS]
     for name, replaces, kern, plain, (b_ms, b_by), err in rows:
         src = "gam_retrieve" if name == "gam_retrieve_q" else name
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches["tess_project@1M" if name == "tess_project"
+                                 else name],
             "max_abs_err": err, "ms": time_ms(torch, kern, 20),
             "plain_ms": time_ms(torch, plain, 3), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
+        if name in ("tess_project", "gam_score"):
+            kernels[-1]["graph_ms"] = graph_ms(torch, kern, calls=5, reps=5)
+    kernels[-1]["yardstick_ms"] = time_ms(torch, lambda: matmul_where(
+        torch, u0, r._items_dev, masks0), 20)
+    for row in kernels[2:]:
+        print(f"{row['name']} at the slice's shape: {row['launches']} "
+              f"launches, {row['ms']:.4f} ms, in a CUDA graph "
+              f"{row['graph_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), plain {row['plain_ms']:.3f} ms"
+              + (f", matmul + where (two calls) {row['yardstick_ms']:.4f} ms"
+                 if "yardstick_ms" in row else ""))
     # the exact re-rank is torch code, not a kernel: its share of a request
     report["int8"]["rerank_ms"] = time_ms(
         torch, lambda: gr.rerank_pool(got_q, u0, rq._items_dev, KAPPA), 20)
@@ -1874,7 +1984,7 @@ def main() -> int:
     lap("5b")
 
     # ------------------------------------- 6. / 6b. the service tier
-    phase_service(torch, report, items, centers, cfg, svc_bucket)
+    kernels += phase_service(torch, report, items, centers, cfg, svc_bucket)
     lap("6")
     phase_service_int8(torch, report, items, centers, cfg, svc_bucket)
     lap("6b")

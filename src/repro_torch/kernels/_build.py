@@ -17,7 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "build_all", "library", "check"]
+__all__ = ["NVCC_FLAGS", "build_dir", "build_all", "library", "check",
+           "entry", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -97,3 +98,23 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, its signature
+    bound once per loaded library (``restype`` int, a CUDA error code)."""
+    fn = getattr(library(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream -> its return
+    code.  The current device is switched only when it is another one."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -19,8 +19,12 @@ __all__ = ["NEG", "dot_plain", "fma_dot", "gam_score", "gam_score_plain"]
 
 NEG = -1e30
 
-# 65535 grid rows of 32-query tiles
-_MAX_Q = 65535 * 32
+# queries a call: the grid's y extent (65,535) of query chunks, 256 queries
+# a chunk where item rows sit in registers (k <= 32), 8 where k is staged
+_MAX_Q_REGISTERS = 65535 * 256
+_MAX_Q_STAGED = 65535 * 8
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64,
+                                     ctypes.c_int, ctypes.c_void_p]
 
 
 def fma_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -70,19 +74,16 @@ def gam_score(u: torch.Tensor, v: torch.Tensor,
     if v.shape[1] != k or tuple(mask.shape) != (q, n):
         raise ValueError(f"gam_score shapes u {tuple(u.shape)}, v "
                          f"{tuple(v.shape)}, mask {tuple(mask.shape)}")
-    if q > _MAX_Q:
-        raise ValueError(f"gam_score takes at most {_MAX_Q} queries a call "
-                         f"(its grid's y extent), got {q}")
+    max_q = _MAX_Q_REGISTERS if k <= 32 else _MAX_Q_STAGED
+    if q > max_q:
+        raise ValueError(f"gam_score takes at most {max_q} queries a call at "
+                         f"k = {k} (its grid's y extent), got {q}")
     out = torch.empty((q, n), dtype=torch.float32, device=u.device)
-    lib = _build.library("gam_score")
-    fn = lib.gam_score_f32 if u.dtype == torch.float32 else lib.gam_score_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        _build.check(fn(u.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                        out.data_ptr(), q, n, k, stream), "gam_score")
+    fn = _build.entry("gam_score", "gam_score_f32" if u.dtype == torch.float32
+                      else "gam_score_bf16", _ARGTYPES)
+    _build.check(_build.launch(fn, u.device, u.data_ptr(), v.data_ptr(),
+                               mask.data_ptr(), out.data_ptr(), q, n, k),
+                 "gam_score")
     gam_score.launches += 1
     return out
 

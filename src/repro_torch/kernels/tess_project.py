@@ -14,15 +14,19 @@ import torch
 from repro_torch.core.tessellation import ternary_pattern
 from repro_torch.kernels import _build
 
-__all__ = ["TESS_MAX_K", "TESS_THREAD_MAX_K", "tess_project",
-           "tess_project_plain"]
+__all__ = ["TESS_MAX_K", "TESS_THREAD_MAX_K", "TESS_WARP_MAX_K",
+           "tess_project", "tess_project_plain"]
 
-#: widest row of the one-thread-per-row kernel (its per-thread row buffers);
-#: wider rows take the one-CTA-per-row kernel
-TESS_THREAD_MAX_K = 256
-#: widest row the card takes: the wide kernel's three k-long arrays (12k
-#: bytes) and its 2 KB reduction must fit in 227 KB of shared memory
+#: widest row of the one-thread-per-row route (the row's keys in registers)
+TESS_THREAD_MAX_K = 32
+#: widest row of the one-warp-per-row route; wider rows take one CTA a row
+TESS_WARP_MAX_K = 1024
+#: widest row the card takes: the CTA route's k keys and k running sums
+#: (12k bytes) must fit in a block's 232,448 bytes of shared memory
 TESS_MAX_K = 19200
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 
 
 def tess_project_plain(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -33,8 +37,9 @@ def tess_project_plain(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def tess_project(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel: z (B, k) f32 contiguous on the card; rows
-    wider than ``TESS_THREAD_MAX_K`` take the one-CTA-per-row kernel."""
+    """Launch the CUDA kernel: z (B, k) f32 contiguous on the card.  The
+    route follows k: a thread a row up to ``TESS_THREAD_MAX_K``, a warp a row
+    up to ``TESS_WARP_MAX_K``, a CTA a row up to ``TESS_MAX_K``."""
     if z.device.type != "cuda":
         raise ValueError(f"tess_project kernel needs a CUDA tensor, got {z.device}")
     if z.dtype != torch.float32 or z.dim() != 2 or not z.is_contiguous():
@@ -48,15 +53,9 @@ def tess_project(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             f"gives a block at most 232,448 (rows are not streamed)")
     pat = torch.empty((b, k), dtype=torch.int8, device=z.device)
     a = torch.empty((b, k), dtype=torch.float32, device=z.device)
-    lib = _build.library("tess_project")
-    fn = lib.tess_project_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        _build.check(fn(z.data_ptr(), pat.data_ptr(), a.data_ptr(), b, k,
-                        stream), "tess_project")
+    fn = _build.entry("tess_project", "tess_project_f32", _ARGTYPES)
+    _build.check(_build.launch(fn, z.device, z.data_ptr(), pat.data_ptr(),
+                               a.data_ptr(), b, k), "tess_project")
     tess_project.launches += 1
     return pat, a
 

@@ -95,6 +95,43 @@ def test_tess_project_wide_rows_equal_plain_except_near_ties(dev, k):
     print(f"k={k}: {rows.size} near-tie rows of 32000")
 
 
+@pytest.mark.parametrize("k", [1, 16, 17, 32, 33, 256, 257, 1024, 1025, 2048,
+                               4100, tp.TESS_MAX_K])
+def test_tess_project_routes_at_their_edges_equal_plain(dev, k):
+    """Each route's edges (narrow: 4/8/16/32 keys a thread; warp: 2..32 keys
+    a lane; CTA: past 48 KB and at TESS_MAX_K), with rows that are not a
+    multiple of a CTA's rows (128 narrow, 4 warp): bit for bit as the plain
+    version, duplicates, thresholded zeros, -0.0 and an all-zero row
+    included."""
+    b = 2 if k == tp.TESS_MAX_K else (258 if k <= 32 else 7)
+    r = np.random.default_rng(k)
+    z = r.normal(size=(b, k)).astype(np.float32)
+    z[0] = 0.0
+    z[1] = np.round(z[1] * 2) / 2 * np.where(r.random(k) < 0.3, -0.0, 1.0)
+    z[2:, k // 2:] *= np.abs(z[2:, k // 2:]) > 0.5
+    zt = torch.from_numpy(z).to(dev)
+    pat, a = tp.tess_project(zt)
+    torch.cuda.synchronize()
+    want_pat, want_a = tp.tess_project_plain(zt)
+    assert torch.equal(pat, want_pat)
+    assert torch.equal(a, want_a)
+
+
+@pytest.mark.parametrize("k", [10, 33])
+def test_tess_project_on_views_at_any_offset(dev, k):
+    """Contiguous views that start one row or one float into an allocation
+    (the narrow route stages from the 16-byte address below)."""
+    base = torch.from_numpy(np.random.default_rng(k).normal(
+        size=(1001 * k + 1,)).astype(np.float32)).to(dev)
+    for z in (base[k:k + 1000 * k].view(1000, k),
+              base[1:1 + 1000 * k].view(1000, k)):
+        pat, a = tp.tess_project(z)
+        torch.cuda.synchronize()
+        want_pat, want_a = tp.tess_project_plain(z)
+        assert torch.equal(pat, want_pat)
+        assert torch.equal(a, want_a)
+
+
 def test_tess_project_rejects_rows_past_shared_memory(dev):
     z = torch.zeros((2, tp.TESS_MAX_K + 1), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
@@ -113,6 +150,31 @@ def test_gam_score_kernel_equals_plain(dev, q, n, k, dtype):
     torch.cuda.synchronize()
     want = gs.gam_score_plain(u, v, mask)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("q,n,k", [(8, 32000, 512), (256, 100003, 10),
+                                   (7, 1001, 10), (3, 4099, 33),
+                                   (70, 1027, 32), (9, 515, 100)])
+def test_gam_score_kernel_at_route_edges_equals_plain(dev, q, n, k):
+    """The GAM head's and the oracle's shapes, N not a multiple of 4, both
+    routes' edges (k 32 / 33), ragged query chunks: every output the plain
+    version's but where its fma emulation double-rounds (at most one ulp,
+    about one step in 2^29: counted, and at most one output in 2^20)."""
+    r = np.random.default_rng(q * n + k)
+    u = torch.from_numpy(r.normal(size=(q, k)).astype(np.float32)).to(dev)
+    v = torch.from_numpy(r.normal(size=(n, k)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(r.random((q, n)) < 0.3).to(dev)
+    before = gs.gam_score.launches
+    got = gs.gam_score(u, v, mask)
+    torch.cuda.synchronize()
+    assert gs.gam_score.launches == before + 1
+    want = gs.gam_score_plain(u, v, mask)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    differ = got != want
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    assert int(ulps.max()) <= 1
+    assert int(differ.sum()) <= max(1, got.numel() >> 20), int(differ.sum())
+    assert bool((got[~mask] == gs.NEG).all())
 
 
 RETRIEVE_CASES = [
