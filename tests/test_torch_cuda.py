@@ -631,27 +631,134 @@ def test_flash_prefill_kernel_is_causal(dev):
 # ------------------------------------------------------------ gam_coarse
 
 
-@pytest.mark.parametrize("b,d,v,lo,hi", [
-    (1, 64, 500, -1, 2), (4, 128, 4096, -1, 2), (8, 32, 100, -1, 2),
-    (2, 256, 2049, -1, 2), (3, 100, 33, -128, 128), (13, 300, 1001, -1, 2),
-    (8, 2048, 32000, -1, 2), (8, 512, 32000, -1, 2)])
-def test_gam_coarse_kernel_equals_plain(dev, b, d, v, lo, hi):
-    """Within the rounding bound of two d-term f32 sums in other orders
-    (``coarse_tolerance``); the last two shapes are tinyllama's head width
-    at d 2048 and at the GAM head's d 512."""
-    from repro_torch.kernels import gam_coarse as gc
-    r = np.random.default_rng(b * d + v)
+def _coarse_inputs(dev, b, d, v, lo, hi, seed=None):
+    r = np.random.default_rng(b * d + v if seed is None else seed)
     h = torch.from_numpy(r.normal(size=(b, d)).astype(np.float32)).to(dev)
     pat = torch.from_numpy(r.integers(lo, hi, size=(d, v)).astype(
         np.int8)).to(dev)
     inv = torch.from_numpy(r.random(v).astype(np.float32)).to(dev)
+    return h, pat, inv
+
+
+def _coarse_within_bound(gc, h, pat, inv, got):
+    want = gc.gam_coarse_plain(h, pat, inv)
+    return bool(((got - want).abs() <= gc.coarse_tolerance(h, pat,
+                                                            inv)).all())
+
+
+@pytest.mark.parametrize("b,d,v,lo,hi", [
+    (1, 64, 500, -1, 2), (4, 128, 4096, -1, 2), (8, 32, 100, -1, 2),
+    (2, 256, 2049, -1, 2), (3, 100, 33, -128, 128), (13, 300, 1001, -1, 2),
+    (8, 2048, 32000, -1, 2), (8, 512, 32000, -1, 2),
+    (1, 2048, 32000, -1, 2), (16, 2048, 32000, -1, 2),
+    (64, 2048, 32000, -1, 2), (256, 2048, 32000, -1, 2),
+    (64, 1000, 4000, -128, 128), (256, 77, 1041, -128, 128),
+    (300, 33, 160, -1, 2), (5, 1, 17, -128, 128), (7, 2047, 32001, -1, 2),
+    (32, 2048, 32000, -1, 2), (24, 300, 1001, -128, 128),
+    (100, 2048, 32000, -1, 2), (128, 77, 1041, -128, 128)])
+def test_gam_coarse_kernel_equals_plain(dev, b, d, v, lo, hi):
+    """Within the rounding bound of two d-term f32 sums in other orders
+    (``coarse_tolerance``); at tinyllama's head width (d 2048, V 32,000)
+    for B 1, 8, 16, 32, 64, 100 and 256, at the GAM head's d 512, at d not
+    a multiple of 16, V = 1 mod 16, and B past one pass (300): every config
+    of the plan (B <= 8, 16, 32, 64, 128, 256) on both staging routes."""
+    from repro_torch.kernels import gam_coarse as gc
+    h, pat, inv = _coarse_inputs(dev, b, d, v, lo, hi)
     before = gc.gam_coarse.launches
     got = gc.gam_coarse(h, pat, inv)
     torch.cuda.synchronize()
     assert gc.gam_coarse.launches == before + 1
-    want = gc.gam_coarse_plain(h, pat, inv)
-    assert bool(((got - want).abs() <= gc.coarse_tolerance(h, pat,
-                                                            inv)).all())
+    assert tuple(got.shape) == (b, v) and bool(torch.isfinite(got).all())
+    assert _coarse_within_bound(gc, h, pat, inv, got)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 16])
+@pytest.mark.parametrize("v", [4096, 1001])
+def test_gam_coarse_kernel_on_a_pattern_view_at_any_offset(dev, offset, v):
+    """A contiguous view whose pointer lies ``offset`` bytes into a larger
+    buffer: the plan's byte-load route unless the view is 16-byte aligned
+    and V % 16 == 0."""
+    from repro_torch.kernels import gam_coarse as gc
+    b, d = 8, 200
+    h, pat, inv = _coarse_inputs(dev, b, d, v, -128, 128)
+    buf = torch.zeros(d * v + 64, dtype=torch.int8, device=dev)
+    view = buf[offset:offset + d * v].view(d, v)
+    view.copy_(pat)
+    plan = gc.coarse_plan(b, d, v, view.data_ptr() % 16)
+    assert plan.vec == (v % 16 == 0 and view.data_ptr() % 16 == 0)
+    got = gc.gam_coarse(h, view, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gc.gam_coarse(h, pat, inv))
+    assert _coarse_within_bound(gc, h, pat, inv, got)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+@pytest.mark.parametrize("b,v", [(8, 4096), (64, 4096), (8, 1001)])
+def test_gam_coarse_kernel_on_an_inv_view_at_any_offset(dev, offset, b, v):
+    """inv_sqrt_nnz as a contiguous view ``offset`` floats into a larger
+    buffer (4, 8 or 16 bytes past 16-byte alignment), on the TMA route
+    (V % 16 == 0) and the byte-load route: the same answer as from an
+    aligned copy."""
+    from repro_torch.kernels import gam_coarse as gc
+    h, pat, inv = _coarse_inputs(dev, b, 200, v, -128, 128)
+    buf = torch.zeros(v + 8, dtype=torch.float32, device=dev)
+    view = buf[offset:offset + v]
+    view.copy_(inv)
+    got = gc.gam_coarse(h, pat, view)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gc.gam_coarse(h, pat, inv))
+    assert _coarse_within_bound(gc, h, pat, inv, got)
+
+
+@pytest.mark.parametrize("b,d,v", [(1, 2048, 4096), (8, 2048, 4096),
+                                   (16, 512, 1001), (24, 2048, 4096),
+                                   (64, 2048, 4096), (100, 512, 1001),
+                                   (256, 2048, 4096)])
+def test_gam_coarse_kernel_keeps_the_third_term_of_h(dev, b, d, v):
+    """On inputs whose answer lies in h's third bf16 term
+    (``third_term_probe``), the kernel is within an eighth of the error a
+    product of two terms would make, against the product in f64: each
+    config of the plan, on both staging routes."""
+    from repro_torch.kernels import gam_coarse as gc
+    h, pat, inv = gc.third_term_probe(b, d, v, seed=b + d, device=dev)
+    got = gc.gam_coarse(h, pat, inv)
+    torch.cuda.synchronize()
+    err3, err2 = gc.third_term_errors(got, h, pat, inv)
+    assert err3 <= err2 / 8, (err3, err2)
+    assert _coarse_within_bound(gc, h, pat, inv, got)
+
+
+@pytest.mark.parametrize("b,d,v", [(8, 2048, 32000), (64, 512, 4096),
+                                   (3, 333, 1001)])
+def test_gam_coarse_kernel_on_h_from_2_to_minus_60_to_2_to_60(dev, b, d, v):
+    """h with magnitudes from 2^-60 to 2^60 in every row, each value
+    followed by its negation, against int8 over its whole range."""
+    from repro_torch.kernels import gam_coarse as gc
+    r = np.random.default_rng(d)
+    half = (2.0 ** r.integers(-60, 61, size=(b, -(-d // 2)))
+            * r.uniform(1, 2, (b, -(-d // 2)))).astype(np.float32)
+    h = np.empty((b, d), np.float32)
+    h[:, 0::2] = half
+    h[:, 1::2] = -half[:, :d // 2]
+    h = torch.from_numpy(h).to(dev)
+    pat = torch.from_numpy(r.integers(-128, 128, size=(d, v)).astype(
+        np.int8)).to(dev)
+    inv = torch.from_numpy(r.uniform(0.01, 1.0, v).astype(np.float32)).to(dev)
+    got = gc.gam_coarse(h, pat, inv)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _coarse_within_bound(gc, h, pat, inv, got)
+
+
+def test_gam_coarse_kernel_reruns_are_bit_identical(dev):
+    """One accumulator an output summed in a fixed order, no atomics."""
+    from repro_torch.kernels import gam_coarse as gc
+    for b, d, v in ((8, 2048, 32000), (64, 2048, 32000), (256, 300, 5000),
+                    (5, 100, 1001), (100, 2048, 32000)):
+        h, pat, inv = _coarse_inputs(dev, b, d, v, -128, 128)
+        first = gc.gam_coarse(h, pat, inv)
+        for _ in range(3):
+            assert torch.equal(gc.gam_coarse(h, pat, inv), first)
 
 
 # ------------------------------------------------------------ sharded tier
