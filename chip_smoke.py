@@ -43,6 +43,26 @@ Phases, each of which fails the run if it fails:
    A pool of 256 (past the kernel's shared-memory lists) must agree with
    the plain version too; the int8 kernel's time at pools of 10, 40, 128
    and 256 is printed.
+3c. The paper's inverted index and the §5.1 baselines, on phase 3's
+   catalog and requests.  ``open_retriever(RetrieverSpec(backend="gam",
+   ...), device="cuda")`` (the CSR on the card, the map through
+   ``tess_project``, the candidates a chunk of queries at a time scored
+   through ``gam_score``; both launch counts must move) answers the same
+   warm-up and 8 requests: ids and ``n_scored`` must equal ``gam-device``'s
+   on every
+   query (phase 3's bucket leaves no spill, so the candidate sets are the
+   same) and scores be within 4 ulp of them; ``exact=True`` must equal
+   ``brute`` and a snapshot round-trip bit for bit.  The same under
+   ``compress_postings=True`` must answer bit-identically to the flat
+   index and round-trip too.  ``srp-lsh``, ``superbit-lsh``, ``cro`` and
+   ``pca-tree`` at their default options answer a warm-up and 2 requests:
+   ``exact=True`` must equal ``brute``, and each answer must be the exact
+   top kappa of the backend's own candidates under the dense oracle
+   (``masked_topk`` on their mask, scores within 4 ulp, ``n_scored`` their
+   count).  Build seconds, postings and compressed index bytes, patterns,
+   hits walked and candidates a query, recall@10 against ``brute``, the
+   discarded fraction, request p50/p99 (host clock) and one request's time
+   by stage (map, posting walk, scoring and top-kappa) are printed.
 4. Timings: each kernel's median time, its plain version's, and its bound
    on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32, 989 TFLOP/s bf16); for the
    fused retrieval kernel also its route and its other floors (popcounts
@@ -388,6 +408,218 @@ def request_share(torch, serve, spans, n: int) -> dict:
             "kernel_device_ms_p50": float(np.median(dev)),
             "kernel_share_p50": float(np.median(dev / host)),
             "launches_per_request": int(launches.max())}
+
+
+# ------------------------------------------- 3c. the paper's inverted index
+
+BASELINES = ("srp-lsh", "superbit-lsh", "cro", "pca-tree")
+BASELINE_REQUESTS = 2
+
+
+def drive(torch, r, reqs) -> tuple[list, list]:
+    """Request 0 warms up; the rest are answered and timed (host clock)."""
+    lat, answers = [], []
+    for i, users in enumerate(reqs):
+        t0 = time.perf_counter()
+        res = r.query(users)
+        dt = time.perf_counter() - t0
+        if i:
+            lat.append(dt * 1e3)
+            answers.append(res)
+    return lat, answers
+
+
+def same_answer(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("ids", "scores", "n_scored", "discarded_frac"))
+
+
+def snapshot_round_trip(torch, r, spec, users, what) -> None:
+    from repro_torch.kernels import _build
+    from repro_torch.retriever import open_retriever
+    snap = _build.build_dir() / "chip_smoke_snapshot.npz"
+    before = r.query(users)
+    r.snapshot(str(snap))
+    after = open_retriever(spec, snapshot=str(snap), device="cuda").query(
+        users)
+    snap.unlink()
+    fail_unless(same_answer(after, before),
+                f"{what}: snapshot round trip changed the answers")
+
+
+def phase_gam_index(torch, report, items, reqs, spec, answers, brute):
+    """3c: ``gam`` (flat and compressed CSR) and the four §5.1 baselines on
+    phase 3's catalog and requests, against ``gam-device``'s answers, the
+    dense oracle and ``brute``."""
+    from repro_torch.core.retrieval import masked_topk, recovery_accuracy
+    from repro_torch.kernels import gam_score as gs
+    from repro_torch.kernels import tess_project as tp
+    from repro_torch.retriever import RetrieverSpec, open_retriever
+    dev = torch.device("cuda")
+    out: dict = {}
+    truth = [brute.query(u) for u in reqs[1:]]
+
+    # --- gam, flat: the main path of this phase, counts read around it
+    gspec = dataclasses.replace(spec, backend="gam")
+    tp.tess_project.launches = gs.gam_score.launches = 0
+    t0 = time.perf_counter()
+    rg = open_retriever(gspec, items=items, device="cuda")
+    index = rg.index                    # the CSR is built on first use
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lat, got = drive(torch, rg, reqs)
+    launches = {"tess_project": tp.tess_project.launches,
+                "gam_score": gs.gam_score.launches}
+    for name, n in launches.items():
+        fail_unless(n > 0, f"{name} never launched on gam's path")
+    ulp = 0
+    for want, res in zip(answers, got):
+        fail_unless(np.array_equal(res.ids, want.ids),
+                    "gam ids differ from gam-device's")
+        fail_unless(np.array_equal(res.n_scored, want.n_scored),
+                    "gam n_scored differs from gam-device's")
+        real = want.ids >= 0
+        ulp = max(ulp, max_ulp(np.where(real, res.scores, 0),
+                               np.where(real, want.scores, 0)))
+    fail_unless(ulp <= ULP, "gam scores beyond 4 ulp of gam-device's")
+    for users, b in zip(reqs[1:3], truth):
+        ex = rg.query(users, exact=True)
+        fail_unless(np.array_equal(ex.ids, b.ids)
+                    and np.array_equal(ex.scores, b.scores),
+                    "gam exact=True differs from brute")
+    snapshot_round_trip(torch, rg, gspec, reqs[1], "gam")
+    hits = []
+    for users in reqs[1:]:
+        q_tau, q_mask = rg._map(torch.as_tensor(users, device=dev))
+        starts = index.offsets[q_tau]
+        lens = torch.where(q_mask, index.offsets[q_tau + 1] - starts, 0)
+        hits.append(lens.sum(dim=1).double().mean().item())
+    # a request's time by stage (host clock, synchronised after each)
+    from repro_torch.core.retrieval import candidate_topk
+    u1 = torch.as_tensor(reqs[1], device=dev)
+
+    def stage(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return res, float(np.median(ts))
+
+    (q_tau, q_mask), map_ms = stage(lambda: rg._map(u1))
+    (qrow, rows, _), walk_ms = stage(lambda: index.candidates(
+        q_tau, spec.min_overlap, q_mask))
+    _, score_ms = stage(lambda: candidate_topk(u1, rg._items_dev, qrow, rows,
+                                               KAPPA))
+    del qrow, rows
+    print(f"gam: a request by stage (median of 3, host clock): map "
+          f"{map_ms:.3f} ms, posting walk {walk_ms:.3f} ms, scoring and "
+          f"top-kappa {score_ms:.3f} ms")
+    out["gam"] = {
+        "stage_ms": {"map": map_ms, "walk": walk_ms, "score_topk": score_ms},
+        "build_s": build_s, "postings_bytes": index.nbytes,
+        "hits_per_query": float(np.mean(hits)),
+        "candidates_per_query": float(np.mean([r.n_scored.mean()
+                                               for r in got])),
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)), "latency_ms": lat,
+        "launches": launches, "max_ulp_vs_gam_device": ulp}
+    g = out["gam"]
+    print(f"gam: build {build_s:.2f} s (map + CSR), postings "
+          f"{index.nbytes} B, {g['hits_per_query']:.0f} hits walked and "
+          f"{g['candidates_per_query']:.0f} candidates a query, request p50 "
+          f"{g['p50_ms']:.3f} ms p99 {g['p99_ms']:.3f} ms; launches "
+          f"{launches}; ids and n_scored = gam-device on all "
+          f"{N_REQUESTS * BATCH} queries, max ulp {ulp}; exact=True = brute;"
+          " snapshot bit-identical")
+
+    # --- gam, compressed postings: the same answers bit for bit
+    cspec = dataclasses.replace(gspec, compress_postings=True)
+    t0 = time.perf_counter()
+    rc = open_retriever(cspec, items=items, device="cuda")
+    rc.index
+    torch.cuda.synchronize()
+    c_build_s = time.perf_counter() - t0
+    c_lat, c_got = drive(torch, rc, reqs)
+    fail_unless(all(same_answer(a, b) for a, b in zip(c_got, got)),
+                "compressed gam differs from the flat gam")
+    snapshot_round_trip(torch, rc, cspec, reqs[1], "compressed gam")
+    _, c_walk_ms = stage(lambda: rc.index.candidates(
+        q_tau, spec.min_overlap, q_mask))
+    st = rc.stats()
+    out["gam_compressed"] = {
+        "walk_ms": c_walk_ms,
+        "build_s": c_build_s, "index_bytes": st["index_bytes"],
+        "n_patterns": st["n_patterns"], "flat_bytes": index.nbytes,
+        "p50_ms": float(np.percentile(c_lat, 50)),
+        "p99_ms": float(np.percentile(c_lat, 99))}
+    print(f"gam compressed: index_bytes {st['index_bytes']} "
+          f"({st['n_patterns']} patterns) against {index.nbytes} flat, "
+          f"build {c_build_s:.2f} s, request p50 "
+          f"{out['gam_compressed']['p50_ms']:.3f} ms p99 "
+          f"{out['gam_compressed']['p99_ms']:.3f} ms (walk and decode "
+          f"{c_walk_ms:.3f} ms); answers bit-identical to the flat gam; "
+          "snapshot bit-identical")
+    recall = [recovery_accuracy(r.ids, b.ids).mean()
+              for r, b in zip(got, truth)]
+    out["gam"]["recall"] = float(np.mean(recall))
+    out["gam"]["discarded_frac"] = float(np.mean(
+        [r.discarded_frac.mean() for r in got]))
+    del rc, index
+
+    # --- the §5.1 baselines at their default options
+    breq = reqs[:BASELINE_REQUESTS + 1]
+    for name in BASELINES:
+        bspec = RetrieverSpec(cfg=spec.cfg, backend=name, kappa=KAPPA)
+        t0 = time.perf_counter()
+        rb = open_retriever(bspec, items=items, device="cuda")
+        torch.cuda.synchronize()
+        b_build_s = time.perf_counter() - t0
+        b_lat, b_got = drive(torch, rb, breq)
+        for users, res, b in zip(breq[1:], b_got, truth):
+            ex = rb.query(users, exact=True)
+            fail_unless(np.array_equal(ex.ids, b.ids)
+                        and np.array_equal(ex.scores, b.scores),
+                        f"{name} exact=True differs from brute")
+            u = torch.as_tensor(users, device=dev)
+            qrow, rows = rb._impl.candidates(u)
+            mask = torch.zeros((len(users), len(items)), dtype=torch.bool,
+                               device=dev)
+            mask[qrow, rows] = True
+            o_vals, o_ids = masked_topk(u, rb._items_dev, mask, KAPPA)
+            o_vals, o_ids = o_vals.cpu().numpy(), o_ids.cpu().numpy()
+            empty = o_vals <= gs.NEG / 2
+            fail_unless(np.array_equal(res.ids, np.where(empty, -1, o_ids)),
+                        f"{name}: answers are not the exact top kappa of "
+                        "its own candidates")
+            fail_unless(max_ulp(np.where(empty, 0, res.scores),
+                                np.where(empty, 0, o_vals)) <= ULP,
+                        f"{name}: scores beyond 4 ulp of the dense oracle")
+            fail_unless(np.array_equal(res.n_scored,
+                                       mask.sum(dim=1).cpu().numpy()),
+                        f"{name}: n_scored differs from its candidates")
+            del mask
+        row = {"build_s": b_build_s,
+               "recall": float(np.mean([recovery_accuracy(r.ids, b.ids).mean()
+                                        for r, b in zip(b_got, truth)])),
+               "discarded_frac": float(np.mean([r.discarded_frac.mean()
+                                                for r in b_got])),
+               "candidates_per_query": float(np.mean([r.n_scored.mean()
+                                                      for r in b_got])),
+               "p50_ms": float(np.percentile(b_lat, 50))}
+        out[name] = row
+        print(f"baseline {name}: build {b_build_s:.2f} s, recall@{KAPPA} "
+              f"{row['recall']:.4f}, discarded {row['discarded_frac']:.4f} "
+              f"({row['candidates_per_query']:.0f} candidates a query), "
+              f"request p50 {row['p50_ms']:.3f} ms; exact=True = brute, "
+              "answers = exact top kappa of its candidates")
+        del rb
+    print(f"gam: recall@{KAPPA} {out['gam']['recall']:.4f}, discarded "
+          f"{out['gam']['discarded_frac']:.4f} (the §5.1 comparison at "
+          f"{len(items)} items)")
+    report["gam_index"] = out
 
 
 # ------------------------------------------------------ LM serving phases
@@ -2053,15 +2285,20 @@ def main() -> int:
     print("int8: gam_retrieve_q ms by pool width: " + ", ".join(
         f"{w}: {ms:.4f}" for w, ms in
         report["int8"]["kernel_ms_by_pool"].items()))
-    del r, rq, brute, got, got_q, masks0, items_t, zt
-    torch.cuda.empty_cache()
-
-    # ------------------------------------------- 5. / 5b. LM serving
-    keep: dict = {}
     phase_s = {"1-4": time.perf_counter() - t_start}
 
     def lap(name):
         phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+
+    # ------------------------------- 3c. the paper's inverted index
+    del rq, got, got_q, masks0, items_t, zt
+    phase_gam_index(torch, report, items, reqs, spec, answers, brute)
+    lap("3c")
+    del r, brute
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 5. / 5b. LM serving
+    keep: dict = {}
 
     kernels += phase_lm(torch, report, keep)
     lap("5")

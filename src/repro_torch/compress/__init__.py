@@ -7,10 +7,13 @@ Counterpart of ``repro.compress`` (the port imports nothing of ``repro``):
 * :mod:`repro_torch.compress.quantize`: int8 factor blocks with per-block
   f32 scales (torch, any device, the reference's bytes), decoded inside the
   retrieval kernel and made exact again by the f32 re-rank.
-
-The pattern dictionary (``repro.compress.patterns``) serves only the CPU
-``gam`` index and comes with it.
+* :mod:`repro_torch.compress.patterns`: the pattern dictionary (torch, the
+  reference's pattern ids), which factors the ``gam`` backend's compressed
+  inverted index.
 """
+from repro_torch.compress.patterns import (pattern_dict_decode,
+                                           pattern_dict_encode,
+                                           pattern_dict_nbytes)
 from repro_torch.compress.postings import (CodecError, CompressedPostings,
                                            decode_postings, delta_decode,
                                            delta_encode, encode_postings,
@@ -23,6 +26,7 @@ from repro_torch.compress.quantize import (dequantize_int8,
 __all__ = [
     "CodecError", "CompressedPostings", "decode_postings", "delta_decode",
     "delta_encode", "dequantize_int8", "encode_postings",
-    "group_varint_decode", "group_varint_encode",
-    "quantization_error_bound", "quantize_int8", "score_error_bound",
+    "group_varint_decode", "group_varint_encode", "pattern_dict_decode",
+    "pattern_dict_encode", "pattern_dict_nbytes", "quantization_error_bound",
+    "quantize_int8", "score_error_bound",
 ]

@@ -3,8 +3,10 @@
 Counterpart of the canonical half of ``repro.core.retrieval``:
 :func:`masked_topk` scores through the ``gam_score`` kernel (its plain
 version on the CPU) and writes out the (score desc, row asc) order itself,
-as ``lax.top_k`` gives it; :func:`recovery_accuracy` is the paper's §6
-metric.  The deprecated retriever shims are not ported.
+as ``lax.top_k`` gives it; :func:`candidate_topk` gives the same answer for
+a flat candidate list (the ``gam`` backend's and the baselines' scoring);
+:func:`recovery_accuracy` is the paper's §6 metric.  The deprecated
+retriever shims are not ported.
 """
 from __future__ import annotations
 
@@ -13,9 +15,13 @@ import torch
 
 # a module reference, not the function: ``kernels`` imports ``core`` while
 # ``core`` is still initialising when a kernel module is imported first
+import repro_torch.kernels.gam_score as _gs
 import repro_torch.kernels.ops as _ops
 
-__all__ = ["masked_topk", "recovery_accuracy", "topk_desc"]
+__all__ = ["candidate_topk", "masked_topk", "recovery_accuracy", "topk_desc"]
+
+# query rows x items of one dense candidate mask (bounds its temporaries)
+_MASK_CELLS = 1 << 25
 
 
 def topk_desc(scores: torch.Tensor, kappa: int
@@ -47,6 +53,34 @@ def masked_topk(users: torch.Tensor, items: torch.Tensor, masks: torch.Tensor,
     NEG elsewhere, then (score desc, row asc).  Returns (vals, ids int32)."""
     vals, ids = topk_desc(_ops.gam_score(users, items, masks), kappa)
     return vals, ids.to(torch.int32)
+
+
+def candidate_topk(users: torch.Tensor, factors: torch.Tensor,
+                   qrow: torch.Tensor, rows: torch.Tensor, kappa: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact top-kappa of each query over its own candidate rows.
+
+    ``qrow``/``rows``: (M,) int64 (query, factor row) pairs, ordered by
+    query.  A few queries at a time the pairs become a dense candidate mask
+    scored by :func:`masked_topk` (the ``gam_score`` kernel on the card: the
+    fused kernel's f32 arithmetic, (score desc, row asc)).  Returns ``vals``
+    (Q, kappa) f32 with -inf in empty slots, ``rows`` (Q, kappa) int64 with
+    -1 there, and each query's candidate count (Q,) int64."""
+    q, n, dev = users.shape[0], factors.shape[0], users.device
+    vals = torch.full((q, kappa), -torch.inf, dtype=torch.float32, device=dev)
+    out = torch.full((q, kappa), -1, dtype=torch.int64, device=dev)
+    step = max(1, _MASK_CELLS // max(n, 1))
+    starts = torch.arange(0, q + step, step, device=dev).clamp_(max=q)
+    edges = torch.searchsorted(qrow, starts).tolist()
+    for i, c0 in enumerate(range(0, q, step)):
+        c1, lo, hi = min(q, c0 + step), edges[i], edges[i + 1]
+        mask = torch.zeros((c1 - c0, n), dtype=torch.bool, device=dev)
+        mask[qrow[lo:hi] - c0, rows[lo:hi]] = True
+        v, r = masked_topk(users[c0:c1], factors, mask, kappa)
+        empty = v <= _gs.NEG / 2
+        vals[c0:c1, :v.shape[1]] = torch.where(empty, -torch.inf, v)
+        out[c0:c1, :v.shape[1]] = torch.where(empty, -1, r.to(torch.int64))
+    return vals, out, torch.bincount(qrow, minlength=q)
 
 
 def recovery_accuracy(retrieved_ids: np.ndarray,

@@ -6,6 +6,9 @@ Counterpart of ``repro.core.tessellation``:
     tessellating vector for the ternary base set {-1, 0, 1}.
   * Algorithm 3 (``dary_pattern`` / ``tess_vector_d``): eps-approximate
     closest vector for the D-ary base set.
+  * The test oracles ``enumerate_gamma`` / ``exhaustive_tess_vector``: the
+    tessellating set listed in f64 and the brute-force closest vector, only
+    feasible at small k.
 
 Algorithm 2's t* is an argmax over scaled running sums, so the rounding of
 those sums decides near-ties.  Here the running sum is taken strictly in
@@ -16,9 +19,12 @@ only on rows whose top two scaled sums are a near-tie.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 
-__all__ = ["ternary_pattern", "tess_vector", "dary_pattern", "tess_vector_d"]
+__all__ = ["dary_pattern", "enumerate_gamma", "exhaustive_tess_vector",
+           "ternary_pattern", "tess_vector", "tess_vector_d"]
 
 
 def _sorted_abs_ranks(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -77,3 +83,27 @@ def tess_vector_d(z: torch.Tensor, d: int) -> torch.Tensor:
     """Normalised eps-approximate closest D-ary tessellating vector (Alg 3)."""
     h = dary_pattern(z, d).to(z.dtype) / d
     return h / torch.linalg.vector_norm(h, dim=-1, keepdim=True)
+
+
+def enumerate_gamma(k: int, d: int = 1) -> torch.Tensor:
+    """The normalised tessellating set Gamma in f64 (test oracle): d=1 the
+    ternary set (3^k - 1 rows), general d the D-ary set with base values
+    {0, +-1/d, ..., +-1}."""
+    base = [i / d for i in range(-d, d + 1)]
+    rows = torch.tensor([v for v in itertools.product(base, repeat=k)
+                         if any(x != 0 for x in v)], dtype=torch.float64)
+    return rows / torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+
+
+def exhaustive_tess_vector(z, k: int | None = None, d: int = 1
+                           ) -> torch.Tensor:
+    """Brute-force argmin over Gamma of the angle to z, in f64: the oracle of
+    Lemmas 1 and 2.  ``z``: (k,) or (B, k)."""
+    z = torch.as_tensor(z).to(torch.float64)
+    squeeze = z.dim() == 1
+    if squeeze:
+        z = z[None]
+    gamma = enumerate_gamma(z.shape[-1], d).to(z.device)
+    zn = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+    out = gamma[torch.argmax(zn @ gamma.T, dim=-1)]
+    return out[0] if squeeze else out

@@ -3,16 +3,19 @@
 Counterpart of ``repro.retriever.api``.  :class:`RetrieverSpec` keeps every
 field of the reference, so snapshot headers stay byte-compatible; the device
 is an argument of :func:`open_retriever` and of the backend constructors,
-not a spec field.  The port serves ``brute``, ``gam-device`` and the
-``sharded`` service tier; the other backends raise, naming the slice that
-brings them.
+not a spec field.  The port serves every single-host backend of the
+reference: ``brute``, ``gam`` (the CSR inverted index), ``gam-device`` (the
+fused kernel), the ``sharded`` service tier and the four §5.1 baselines
+(``srp-lsh``, ``superbit-lsh``, ``cro``, ``pca-tree``).
+``sharded-multihost`` raises, naming the slice that brings it.  Third-party
+backends join through :func:`register_backend`.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
 import importlib
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -21,7 +24,8 @@ from repro_torch.core.mapping import GamConfig
 from repro_torch.device import resolve_device
 from repro_torch.retriever.types import RetrievalResult, UnsupportedOp
 
-__all__ = ["BACKEND_IDS", "Retriever", "RetrieverSpec", "open_retriever"]
+__all__ = ["BACKEND_IDS", "Retriever", "RetrieverSpec", "available_backends",
+           "open_retriever", "register_backend"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +103,15 @@ class Retriever(abc.ABC):
     def stats(self) -> dict:
         return {"backend": self.spec.backend, "n_items": self.n_items}
 
+    def maintenance_stats(self) -> dict:
+        """The serving generation and the in-flight compaction /
+        repartition state; backends without background maintenance report
+        the quiescent default."""
+        return {"backend": self.spec.backend,
+                "generation": getattr(self, "generation", 0),
+                "compaction": {"active": False},
+                "repartition": {"n_repartitions": 0}}
+
     def snapshot(self, path: str) -> None:
         raise UnsupportedOp(self.spec.backend, "snapshot")
 
@@ -108,34 +121,48 @@ class Retriever(abc.ABC):
 
 _MODULES: dict[str, tuple[str, str]] = {
     "brute": ("repro_torch.retriever.brute", "BruteRetriever"),
+    "gam": ("repro_torch.retriever.gam", "GamIndexRetriever"),
     "gam-device": ("repro_torch.retriever.gam", "GamIndexRetriever"),
     "sharded": ("repro_torch.retriever.sharded", "ShardedRetriever"),
+    "srp-lsh": ("repro_torch.retriever.baselines", "BaselineRetriever"),
+    "superbit-lsh": ("repro_torch.retriever.baselines", "BaselineRetriever"),
+    "cro": ("repro_torch.retriever.baselines", "BaselineRetriever"),
+    "pca-tree": ("repro_torch.retriever.baselines", "BaselineRetriever"),
 }
 
 # backends of the reference not ported yet -> the ROADMAP slice bringing them
 _LATER = {
-    "gam": "the CPU posting-list slice (ROADMAP queue 1)",
     "sharded-multihost": "the multi-host slice (ROADMAP queue 1)",
-    "srp-lsh": "the baselines slice (ROADMAP queue 1)",
-    "superbit-lsh": "the baselines slice (ROADMAP queue 1)",
-    "cro": "the baselines slice (ROADMAP queue 1)",
-    "pca-tree": "the baselines slice (ROADMAP queue 1)",
 }
 
 BACKEND_IDS = tuple(_MODULES)
 
+_REGISTRY: dict[str, Callable[..., Retriever]] = {}
+
+
+def register_backend(name: str,
+                     factory: Callable[..., Retriever] | None = None):
+    """Register a factory ``f(spec, device=..., **kw) -> Retriever`` under
+    ``name`` (usable as a decorator)."""
+    def _register(f):
+        _REGISTRY[name] = f
+        return f
+    return _register(factory) if factory is not None else _register
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(dict.fromkeys((*_MODULES, *_REGISTRY)))
+
 
 def _resolve(name: str):
-    if name == "gam":
-        raise UnsupportedOp(name, "open_retriever",
-                            f"the port serves it from {_LATER[name]}; use "
-                            "backend='gam-device'")
+    if name in _REGISTRY:
+        return _REGISTRY[name]
     if name in _LATER:
         raise KeyError(f"retriever backend {name!r} is not ported yet: it "
                        f"comes with {_LATER[name]}")
     if name not in _MODULES:
         raise KeyError(f"unknown retriever backend {name!r}; "
-                       f"known: {sorted(BACKEND_IDS)}")
+                       f"known: {sorted(available_backends())}")
     module, cls = _MODULES[name]
     return getattr(importlib.import_module(module), cls)
 

@@ -15,7 +15,25 @@ from repro_torch.retriever.api import Retriever, RetrieverSpec
 from repro_torch.retriever.snapshot import read_snapshot, write_snapshot
 from repro_torch.retriever.types import RetrievalResult, dedupe_last_write
 
-__all__ = ["BruteRetriever"]
+__all__ = ["BruteRetriever", "score_all"]
+
+
+def score_all(ids: np.ndarray, items: torch.Tensor, users: np.ndarray,
+              kappa: int) -> tuple[np.ndarray, np.ndarray]:
+    """Exact top-kappa over every item: (Q, kappa) catalog ids (-1 pad) and
+    scores (-inf pad) as host arrays.  One matmul on the items' device
+    (IEEE f32) and :func:`topk_desc`: ``brute``'s answer, and every other
+    backend's ``exact=True``."""
+    q, n = users.shape[0], items.shape[0]
+    ids_out = np.full((q, kappa), -1, np.int64)
+    sc_out = np.full((q, kappa), -np.inf, np.float32)
+    if n:
+        kk = min(kappa, n)
+        u = torch.as_tensor(users, device=items.device)
+        vals, cols = topk_desc(torch.matmul(u, items.T), kk)
+        ids_out[:, :kk] = ids[cols.cpu().numpy()]
+        sc_out[:, :kk] = vals.cpu().numpy()
+    return ids_out, sc_out
 
 
 class BruteRetriever(Retriever):
@@ -58,14 +76,7 @@ class BruteRetriever(Retriever):
         kappa = self.spec.kappa if kappa is None else int(kappa)
         users = np.asarray(users, np.float32)
         q, n = users.shape[0], self.items.shape[0]
-        ids_out = np.full((q, kappa), -1, np.int64)
-        sc_out = np.full((q, kappa), -np.inf, np.float32)
-        if n:
-            kk = min(kappa, n)
-            u = torch.as_tensor(users, device=self.device)
-            vals, cols = topk_desc(torch.matmul(u, self._items_dev.T), kk)
-            ids_out[:, :kk] = self.ids[cols.cpu().numpy()]
-            sc_out[:, :kk] = vals.cpu().numpy()
+        ids_out, sc_out = score_all(self.ids, self._items_dev, users, kappa)
         exp = None
         if explain:
             exp = {"backend": "brute",

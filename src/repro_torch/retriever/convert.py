@@ -1,11 +1,19 @@
-"""Carry ``gam-device`` index state between the reference and the port.
+"""Carry index state between the reference and the port, both ways.
 
-The reference keeps pattern bitsets as ``uint32``; the port holds the same
-bits as ``int32`` tensors (torch has no shifts or popcount on ``uint32`` on
-the CPU).  :func:`index_from_reference` turns the reference's index state,
-as ``repro``'s ``GamIndexRetriever.snapshot`` writes it, into the port's;
-:func:`index_to_reference` is the inverse, so ``repro`` restores the files
-the port writes.  Every other array keeps its dtype.
+``gam``: :func:`csr_from_reference` / :func:`csr_to_reference` turn the
+reference's snapshot arrays of the CSR inverted index into the port's
+index on a device and back: a flat index is ``postings`` (int32) and
+``offsets`` (int64); a compressed one is the two varint streams
+``sp_data``/``sp_counts`` (slot -> patterns) and ``pi_data``/``pi_counts``
+(pattern -> items) with their value counts in the ``codec`` state entry.
+
+``gam-device``: the reference keeps pattern bitsets as ``uint32``; the port
+holds the same bits as ``int32`` tensors (torch has no shifts or popcount
+on ``uint32`` on the CPU). :func:`index_from_reference` turns the
+reference's index state, as ``repro``'s ``GamIndexRetriever.snapshot``
+writes it, into the port's; :func:`index_to_reference` is the inverse, so
+``repro`` restores the files the port writes. Every other array keeps its
+dtype.
 
 Compressed catalogs: a posting table stored as a delta + group-varint CSR
 (``table_data``/``table_counts`` with a ``codec`` state entry) is
@@ -22,12 +30,50 @@ import torch
 
 from repro_torch.compress.postings import (CompressedPostings,
                                            decode_postings, encode_postings)
-from repro_torch.core.inverted_index import (DeviceIndex, csr_to_table,
-                                             table_to_csr)
+from repro_torch.core.inverted_index import (CompressedInvertedIndex,
+                                             DeviceIndex, InvertedIndex,
+                                             csr_to_table, table_to_csr)
 from repro_torch.kernels.gam_retrieve import RetrievalMeta, quantize_meta
 from repro_torch.retriever.api import RetrieverSpec
 
-__all__ = ["index_from_reference", "index_to_reference"]
+__all__ = ["csr_from_reference", "csr_to_reference", "index_from_reference",
+           "index_to_reference"]
+
+
+def csr_from_reference(arrays: dict, state: dict, *, n_items: int, p: int,
+                       k: int, device: str | torch.device
+                       ) -> InvertedIndex | CompressedInvertedIndex:
+    """The reference's ``gam`` index arrays + snapshot state -> the port's
+    flat or compressed index on ``device``."""
+    if "sp_data" in arrays:
+        codec = state["codec"]
+
+        def stream(name):
+            return CompressedPostings(
+                np.asarray(arrays[f"{name}_data"], np.uint8),
+                np.asarray(arrays[f"{name}_counts"], np.int32),
+                int(codec[f"{name}_n"]))
+
+        return CompressedInvertedIndex(stream("sp"), stream("pi"),
+                                       n_items=n_items, p=p, k=k,
+                                       device=device)
+    return InvertedIndex.from_csr(np.asarray(arrays["postings"], np.int32),
+                                  np.asarray(arrays["offsets"], np.int64),
+                                  n_items=n_items, p=p, k=k, device=device)
+
+
+def csr_to_reference(index: InvertedIndex | CompressedInvertedIndex
+                     ) -> tuple[dict[str, np.ndarray], dict]:
+    """The port's ``gam`` index -> (arrays, state) in the reference's
+    snapshot layout."""
+    if isinstance(index, CompressedInvertedIndex):
+        sp, pi = index.slot_patterns, index.pattern_items
+        return ({"sp_data": sp.data, "sp_counts": sp.counts,
+                 "pi_data": pi.data, "pi_counts": pi.counts},
+                {"codec": {"sp_n": int(sp.n_values),
+                           "pi_n": int(pi.n_values)}})
+    return ({"postings": index.postings.cpu().numpy(),
+             "offsets": index.offsets.cpu().numpy()}, {})
 
 
 def _bits(arr) -> np.ndarray:

@@ -824,3 +824,116 @@ def test_sharded_retriever_on_card_equals_cpu(dev, quantize, tmp_path):
     a, b = back.query(users), rs["cpu"].query(users)
     np.testing.assert_array_equal(a.ids, b.ids)
     np.testing.assert_array_equal(a.scores, b.scores)
+
+
+# ------------------------------------------- the CSR index and the baselines
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_gam_retriever_on_card_equals_cpu(dev, compress, tmp_path):
+    """``gam`` on the card (map through ``tess_project``, posting walk and
+    scoring on the device) answers like ``device="cpu"``, bit for bit, and
+    its snapshot restores on the CPU."""
+    spec = RetrieverSpec(cfg=CFG, backend="gam", min_overlap=2,
+                         compress_postings=compress)
+    items, users = unit_factors(3000, 16, 3), unit_factors(70, 16, 4)
+    before = tp.tess_project.launches
+    on_card = open_retriever(spec, items=items)
+    on_cpu = open_retriever(spec, items=items, device="cpu")
+    for exact in (True, False):
+        a = on_card.query(users, explain=True, exact=exact)
+        b = on_cpu.query(users, explain=True, exact=exact)
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.scores, b.scores)
+        np.testing.assert_array_equal(a.n_scored, b.n_scored)
+        assert a.explain == b.explain
+    assert tp.tess_project.launches >= before + 2      # build + queries
+    assert on_card.index.device.type == "cuda"
+    assert on_card.stats() == on_cpu.stats()
+    path = str(tmp_path / "gam.npz")
+    on_card.snapshot(path)
+    back = open_retriever(spec, snapshot=path, device="cpu").query(users)
+    np.testing.assert_array_equal(back.ids, b.ids)      # b: pruned
+    np.testing.assert_array_equal(back.scores, b.scores)
+
+
+def test_inverted_index_on_card_equals_cpu(dev):
+    from repro_torch.core.inverted_index import InvertedIndex
+    tau, vals = sparse_map(torch.from_numpy(unit_factors(4000, 16, 9)).to(dev),
+                           CFG)
+    q_tau, q_vals = sparse_map(
+        torch.from_numpy(unit_factors(50, 16, 10)).to(dev), CFG)
+    card = InvertedIndex(tau, CFG.p, vals != 0, device=dev)
+    cpu = InvertedIndex(tau.cpu(), CFG.p, (vals != 0).cpu(), device="cpu")
+    assert torch.equal(card.postings.cpu(), cpu.postings)
+    assert torch.equal(card.offsets.cpu(), cpu.offsets)
+    ccard, ccpu = card.compress(), cpu.compress()
+    np.testing.assert_array_equal(ccard.slot_patterns.data,
+                                  ccpu.slot_patterns.data)
+    np.testing.assert_array_equal(ccard.pattern_items.data,
+                                  ccpu.pattern_items.data)
+    for mo in (1, 2, 3):
+        want = cpu.candidates(q_tau.cpu(), mo, (q_vals != 0).cpu())
+        for idx in (card, ccard):
+            got = idx.candidates(q_tau, mo, q_vals != 0)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+    flat = ccard.decompress()
+    assert torch.equal(flat.postings, card.postings)
+
+
+BASELINE_CASES = [("SrpLsh", dict(n_bits=8, n_tables=4)),
+                  ("SuperBitLsh", dict(n_bits=8, n_tables=4)),
+                  ("CroHash", dict(n_proj=32, top_l=2, n_tables=4))]
+
+
+@pytest.mark.parametrize("kind,kwargs", BASELINE_CASES,
+                         ids=[c for c, _ in BASELINE_CASES])
+def test_baseline_hashing_on_card_equals_cpu(dev, kind, kwargs):
+    """The hash codes, tables, candidates and answers on the card are the
+    CPU's bit for bit (both project with the same f32 fma arithmetic)."""
+    from repro_torch.core import baselines as tb
+    items, users = unit_factors(5000, 16, 11), unit_factors(64, 16, 12)
+    card = getattr(tb, kind)(items, **kwargs, device=dev)
+    cpu = getattr(tb, kind)(items, **kwargs, device="cpu")
+    assert torch.equal(card.table_codes.cpu(), cpu.table_codes)
+    assert torch.equal(card.table_items.cpu(), cpu.table_items)
+    for g, w in zip(card.candidates(users), cpu.candidates(users)):
+        assert torch.equal(g.cpu(), w)
+    a, b = card.query(users, 10), cpu.query(users, 10)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.scores, b.scores)
+    np.testing.assert_array_equal(a.n_scored, b.n_scored)
+
+
+def test_pca_tree_on_card_equals_cpu_but_near_medians(dev):
+    """The tree built on the card descends like the CPU's: the power
+    iteration's matmuls may round apart, so a query may take another leaf
+    only where its projection lies within 1e-5 of a median."""
+    from repro_torch.core import baselines as tb
+    items, users = unit_factors(8192, 16, 13), unit_factors(64, 16, 14)
+    card = tb.PcaTree(items, depth=9, device=dev)
+    cpu = tb.PcaTree(items, depth=9, device="cpu")
+    assert card.levels == cpu.levels
+    torch.testing.assert_close(card.split_v.abs().cpu(), cpu.split_v.abs(),
+                               rtol=0, atol=1e-4)
+    leaf_a, leaf_b = card.leaf_of(users).cpu(), cpu.leaf_of(users)
+    u = torch.from_numpy(users)
+    node = torch.zeros(64, dtype=torch.int64)
+    near = torch.zeros(64, dtype=torch.bool)
+    for _ in range(cpu.levels):         # the CPU tree's path of each query
+        split = cpu.child[node, 0] >= 0
+        gap = (u * cpu.split_v[node]).sum(1) - cpu.split_med[node]
+        near |= split & (gap.abs() <= 1e-5)
+        go = (gap > 0).to(torch.int64)
+        node = torch.where(split, cpu.child[node].gather(1, go[:, None])[:, 0],
+                           node)
+    assert ((leaf_a == leaf_b) | near).all()
+    # where both trees give a query the same candidates, the same answer
+    a, b = card.query(users, 10), cpu.query(users, 10)
+    (qa, ra), (qb, rb) = card.candidates(users), cpu.candidates(users)
+    qa, ra = qa.cpu(), ra.cpu()
+    for qi in range(64):
+        if torch.equal(ra[qa == qi], rb[qb == qi]):
+            np.testing.assert_array_equal(a.ids[qi], b.ids[qi])
+            np.testing.assert_array_equal(a.scores[qi], b.scores[qi])

@@ -21,8 +21,10 @@ def test_port_imports_without_jax_or_repro():
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.retriever\n"
             "import repro_torch.retriever.gam, repro_torch.retriever.brute\n"
+            "import repro_torch.retriever.baselines\n"
             "import repro_torch.core, repro_torch.kernels.ops\n"
-            "import repro_torch.compress\n"
+            "import repro_torch.core.baselines, repro_torch.kernels.ref\n"
+            "import repro_torch.compress, repro_torch.compress.patterns\n"
             "import repro_torch.retriever.sharded, repro_torch.service\n"
             "import repro_torch.obs\n"
             "print('ok')\n")
@@ -78,7 +80,8 @@ def test_open_retriever_without_device_never_runs_on_cpu(monkeypatch):
     from repro_torch.retriever import RetrieverSpec, open_retriever
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     items = np.eye(16, dtype=np.float32)
-    for backend in ("gam-device", "brute", "sharded"):
+    for backend in ("gam", "gam-device", "brute", "sharded", "srp-lsh",
+                    "superbit-lsh", "cro", "pca-tree"):
         spec = RetrieverSpec(cfg=GamConfig(k=16), backend=backend)
         with pytest.raises(RuntimeError, match="CUDA"):
             open_retriever(spec, items)
@@ -114,3 +117,38 @@ def test_service_entry_points_without_device_never_run_on_cpu(monkeypatch):
     index = service.ShardedGamIndex.build(items, cfg, n_shards=2,
                                           device="cpu")
     assert index.device.type == "cpu" and index.n_live == 16
+
+
+def test_index_and_baseline_structures_without_device_never_run_on_cpu(
+        monkeypatch):
+    """The CSR indexes and the baseline structures take the card when no
+    device is named, and raise without one."""
+    from repro_torch.core import baselines
+    from repro_torch.core.inverted_index import (CompressedInvertedIndex,
+                                                 InvertedIndex)
+    from repro_torch.retriever.baselines import baseline_from_reference
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    items = np.eye(16, dtype=np.float32)
+    tau = np.tile(np.arange(4, dtype=np.int32), (16, 1)) + np.arange(
+        16, dtype=np.int32)[:, None] % 3
+    builders = [
+        lambda **kw: InvertedIndex(tau, 32, **kw),
+        lambda **kw: baselines.SrpLsh(items, n_bits=4, **kw),
+        lambda **kw: baselines.SuperBitLsh(items, n_bits=4, **kw),
+        lambda **kw: baselines.CroHash(items, n_proj=8, **kw),
+        lambda **kw: baselines.PcaTree(items, depth=2, **kw),
+    ]
+    for build in builders:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+        build(device="cpu")
+    flat = InvertedIndex(tau, 32, device="cpu")
+    comp = flat.compress()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CompressedInvertedIndex(comp.slot_patterns, comp.pattern_items,
+                                n_items=16, p=32, k=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InvertedIndex.from_csr(flat.postings, flat.offsets, n_items=16, p=32,
+                               k=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        baseline_from_reference(object())

@@ -200,13 +200,19 @@ def test_older_snapshot_formats_read_as_the_reference_reads_them(
 def test_unsupported_settings_raise_typed_errors():
     _, tspec = _specs("cfg")
     cfg = tspec.cfg
-    with pytest.raises(tr.UnsupportedOp, match="slice"):
-        tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="gam"),
-                          device="cpu")
-    for name in ("sharded-multihost", "srp-lsh", "pca-tree"):
-        with pytest.raises(KeyError, match="slice"):
-            tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend=name),
-                              device="cpu")
+    with pytest.raises(KeyError, match="slice"):
+        tr.open_retriever(
+            tr.RetrieverSpec(cfg=cfg, backend="sharded-multihost"),
+            device="cpu")
+    # the CSR index and the baselines hold no dense masks or provenance
+    gam = tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="gam"),
+                            items=unit_factors(10, 16, 0), device="cpu")
+    with pytest.raises(tr.UnsupportedOp):
+        gam.candidate_masks(unit_factors(2, 16, 1))
+    lsh = tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="srp-lsh"),
+                            items=unit_factors(10, 16, 0), device="cpu")
+    with pytest.raises(tr.UnsupportedOp, match="explain|provenance"):
+        lsh.query(unit_factors(2, 16, 1), explain=True)
     # the sharded tier serves one card: a device mesh names its slice
     with pytest.raises(tr.UnsupportedOp, match="multi-host slice"):
         tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="sharded"),
