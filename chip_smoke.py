@@ -155,6 +155,32 @@ Phases, each of which fails the run if it fails:
    a CUDA graph, as ``decode_attention`` at the slice's shape, with the
    patterns warm in L2 (``ms``) and cold (``cold_ms``: calls walk copies
    whose total passes twice the 50 MB L2).
+8. The paper's learning loop (``configs/gam_mf``: k 10).  8a: the §6.2
+   surrogate ``movielens_like_ratings(seed=0)`` (943 x 1,682, 73,786
+   ratings) through ``train_mf(cfg=gam_mf.MF)`` (lr 0.005, 25 epochs,
+   batch 8,192) on the card twice: U, V and the mse history must be
+   bit-identical and the mse must fall; ``gam-device`` over V (bucket of
+   the catalog's size, so nothing spills) answers all 943 users at kappa
+   10, ids equal to the dense oracle (scores within 4 ulp), recall@10
+   against ``brute`` printed.  8b: one epoch at MovieLens-20M's shape
+   (138,493 x 26,744, density 0.0054, about 17 M ratings after dedupe)
+   twice, bit-identical; the generator's host seconds, the call's seconds
+   and ratings/s printed.  8c: ``DriftSimulator`` (64 users, 1,048,576
+   items, seed 17, drift 0.2, hot half, 8,192 events a round) feeds
+   ``StreamingMF`` (lr 0.5, momentum 0.6, batch 1,024, users frozen)
+   warm-started from it; ``PushPolicy(min_cos=0.995, staleness_s=4.0)`` on
+   a round clock, seeded with the catalog, lands each round's passers in
+   one ``upsert`` into a live ``sharded`` retriever (phase 6's 8 shards,
+   no list able to spill); 10 rounds, the 64 users queried each round and
+   held against the dense oracle; ``tess_project`` and ``gam_retrieve``
+   must launch in the rounds and a factor must be pushed; afterwards the
+   live answers (exact False and True) must equal a ``sharded`` rebuild
+   over the pushed catalog bit for bit.  Pushes, suppressions, staleness,
+   ``partial_fit`` / flush / upsert / query times, the delta's rows and
+   recall@10 online against a frozen retriever at rounds 1, 5 and 10 are
+   printed.  The kernels are held against their plain versions on the
+   inputs the rounds gave them (the oracle and the frozen queries do not
+   count toward the launches).
 Then the ``kernels`` JSON line (every kernel, at each shape above), the
 card's name and power limit, and the result line.
 
@@ -1784,6 +1810,426 @@ def phase_new_kernels(torch, report, lm):
     return rows
 
 
+# --------------------------------------------------- 8. the learning loop
+
+ML20M_USERS, ML20M_ITEMS, ML20M_DENSITY = 138_493, 26_744, 0.0054
+LEARN_ITEMS = 1 << 20
+LEARN_USERS, LEARN_EVENTS, LEARN_ROUNDS = 64, 8192, 10
+LEARN_RECALL_ROUNDS = (1, 5, 10)
+
+
+class Capture:
+    """While active, the arguments of the first call of ``module.name`` at
+    each new set of tensor shapes: the kernel is then held against its
+    plain version on the inputs the main path gave it.  Calls and the
+    launch count pass through unchanged (as in ``Spans``)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, {}
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def recorded(*args, **kw):
+            key = tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+            self.calls.setdefault(key, (args, kw))
+            return orig(*args, **kw)
+        recorded.launches = orig.launches
+        setattr(self.module, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = getattr(self.module, self.name).launches
+        setattr(self.module, self.name, self.orig)
+
+
+class Uncounted:
+    """Launches made inside (checks, the frozen baseline) are taken back
+    off the kernels' counts: they are not the main path's."""
+
+    def __init__(self, *fns):
+        self.fns = fns          # (module, name) pairs
+
+    def __enter__(self):
+        self.saved = [getattr(m, n).launches for m, n in self.fns]
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), c in zip(self.fns, self.saved):
+            getattr(m, n).launches = c
+
+
+def retrieve_work(torch, args, kw, got) -> tuple[float, float]:
+    """(bytes, operations) one ``gam_retrieve`` call must move and do, by
+    phase 4's count: the shared metadata and kept tiles, each candidate
+    row's factors once, 2k operations a (query, candidate) pair."""
+    from repro_torch.kernels import gam_retrieve as gr
+    users, _, q_tau, q_mask, meta, kappa = args
+    q, k = users.shape
+    q_bits = gr.pack_patterns(q_tau, q_mask, meta.p)
+    alive8 = gr._alive8(kw.get("alive"), meta, users.device)
+    spill8 = meta.spill8[0]
+    rows = torch.zeros(meta.n_pad, dtype=torch.bool, device=users.device)
+    step = 1 << 18
+    for lo in range(0, meta.n_pad, step):
+        hi = min(meta.n_pad, lo + step)
+        ov = torch.zeros((q, hi - lo), dtype=torch.int32, device=users.device)
+        for w in range(meta.words):
+            ov += gr.popcount32(q_bits[:, w, None]
+                                & meta.item_bits_t[w, None, lo:hi])
+        cand = ((ov >= kw.get("min_overlap", 1)) | (spill8[lo:hi] != 0)) \
+            & (alive8[lo:hi] != 0)
+        rows[lo:hi] = cand.any(dim=0)
+    f = 4
+    blocks = int((~got.skipped).any(dim=0).sum())
+    nb, qb, words, bn = (meta.n_blocks, got.skipped.shape[0], meta.words,
+                         meta.bn)
+    n_bytes = (q * k * (f + 1 + f) + nb * (words * f + 1)
+               + blocks * bn * (words * f + 2) + q * nb * f + qb * nb
+               + int(rows.sum()) * k * f + q * kappa * 2 * f)
+    return n_bytes, 2 * k * int(got.blk_counts.sum())
+
+
+def learning_kernel_rows(torch, cap_r, cap_t, cap_s, launches, where):
+    """The ``kernels`` rows of phase 8: each captured call of
+    ``gam_retrieve``, ``tess_project`` and ``gam_score`` re-run through the
+    kernel and its plain version on the same inputs and timed, beside its
+    bound.  ``launches``: the phase's main-path counts."""
+    from repro_torch.kernels import gam_retrieve as gr
+    from repro_torch.kernels import gam_score as gs
+    from repro_torch.kernels import tess_project as tp
+    rows = []
+    for key, (args, kw) in cap_r.items():
+        got = gr.gam_retrieve(*args, **kw)
+        want = gr.gam_retrieve_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for name in ("rows", "blk_counts", "skipped"):
+            fail_unless(torch.equal(getattr(got, name), getattr(want, name)),
+                        f"gam_retrieve@{where} {name} differ from the plain "
+                        "version")
+        gv, wv = got.vals.cpu().numpy(), want.vals.cpu().numpy()
+        fail_unless(max_ulp(gv, wv) <= ULP,
+                    f"gam_retrieve@{where} scores beyond 4 ulp")
+        b_ms, b_by = bound_ms(*retrieve_work(torch, args, kw, got))
+        rows.append({
+            "name": f"gam_retrieve@{where}_{key[0][0]}x{key[1][0]}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gam_retrieve.cu",
+            "replaces": "src/repro/kernels/gam_retrieve.py:384",
+            "launches": launches["gam_retrieve"],
+            "max_abs_err": float(np.abs(gv - wv).max()),
+            "ms": time_ms(torch, lambda: gr.gam_retrieve(*args, **kw), 20),
+            "plain_ms": time_ms(torch,
+                                lambda: gr.gam_retrieve_plain(*args, **kw), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for key, (args, _) in cap_t.items():
+        z = args[0]
+        n = z.shape[0]
+        pat, a = tp.tess_project(z)
+        pat_p, a_p = tp.tess_project_plain(z)
+        torch.cuda.synchronize()
+        differ = (pat != pat_p).any(dim=1).cpu().numpy()
+        fail_unless(near_tie_rows(z[np.nonzero(differ)[0]].cpu().numpy())
+                    .all(), f"tess_project@{where} ({n} rows) rows differ "
+                    "and are not near-ties")
+        same = torch.as_tensor(~differ, device=z.device)
+        err = float((a[same] - a_p[same]).abs().max()) if n else 0.0
+        fail_unless(err == 0.0, f"tess_project@{where} ({n} rows) a differs")
+        b_ms, b_by = bound_ms(n * z.shape[1] * (4 + 1 + 4), 3 * z.shape[1] * n)
+        rows.append({
+            "name": f"tess_project@{where}_{n}rows", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tess_project.cu",
+            "replaces": "src/repro/kernels/tess_project.py:57",
+            "launches": launches["tess_project"], "max_abs_err": err,
+            "ms": time_ms(torch, lambda: tp.tess_project(z), 20),
+            "plain_ms": time_ms(torch, lambda: tp.tess_project_plain(z), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for key, (args, _) in cap_s.items():
+        u, v, mask = args
+        sc, sc_p = gs.gam_score(u, v, mask), gs.gam_score_plain(u, v, mask)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(sc, sc_p, rtol=1e-6, atol=1e-6)
+        q, n, k = u.shape[0], v.shape[0], u.shape[1]
+        b_ms, b_by = bound_ms(q * k * 4 + n * k * 4 + q * n * (1 + 4),
+                              2 * k * int(mask.sum()))
+        rows.append({
+            "name": f"gam_score@{where}_{q}x{n}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gam_score.cu",
+            "replaces": "src/repro/kernels/gam_score.py:60",
+            "launches": launches["gam_score"],
+            "max_abs_err": float((sc - sc_p).abs().max()),
+            "ms": time_ms(torch, lambda: gs.gam_score(u, v, mask), 20),
+            "plain_ms": time_ms(torch, lambda: gs.gam_score_plain(u, v, mask),
+                                3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return rows
+
+
+def pick(calls: dict, keep) -> dict:
+    """The captured calls whose shape key ``keep`` selects."""
+    return {key: c for key, c in calls.items() if keep(key)}
+
+
+def same_factors(a, b, what):
+    fail_unless(all(np.array_equal(x, y) for x, y in zip(a, b)),
+                f"{what}: two train_mf runs with one seed differ")
+
+
+def phase_learning(torch, report):
+    """Phase 8: the paper's learning loop on the card.  8a trains the §6.2
+    factors twice (bit-identical), maps and serves them; 8b runs one epoch
+    at MovieLens-20M's shape; 8c learns a drifting 1M-item catalog into a
+    live ``sharded`` service through ``StreamingMF`` and ``PushPolicy``."""
+    import dataclasses as dc
+
+    from repro_torch.configs import gam_mf
+    from repro_torch.core.mapping import sparse_map
+    from repro_torch.core.retrieval import masked_topk, recovery_accuracy
+    from repro_torch.data import movielens_like_ratings
+    from repro_torch.factorization import train_mf
+    from repro_torch.kernels import gam_retrieve as gr
+    from repro_torch.kernels import gam_score as gs
+    from repro_torch.kernels import tess_project as tp
+    from repro_torch.kernels.gam_score import NEG
+    from repro_torch.online import (DriftSimulator, OnlineMFConfig,
+                                    PushPolicy, StreamingMF)
+    from repro_torch.retriever import RetrieverSpec, open_retriever
+
+    kernels = ((gr, "gam_retrieve"), (tp, "tess_project"), (gs, "gam_score"))
+
+    def counts():
+        return {n: getattr(m, n).launches for m, n in kernels}
+
+    out, kernel_rows = {}, []
+    # ---- 8a: the §6.2 loop at MovieLens-100k's shape, k 10
+    rows, cols, vals = movielens_like_ratings(seed=0)
+    n_u, n_i = 943, 1682
+    for fn in (gr.gam_retrieve, tp.tess_project, gs.gam_score):
+        fn.launches = 0
+    with Capture(gr, "gam_retrieve") as cap_r, \
+            Capture(tp, "tess_project") as cap_t:
+        runs, train_s = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            runs.append(train_mf(rows, cols, vals, n_u, n_i, gam_mf.MF,
+                                 device=DEVICE))
+            torch.cuda.synchronize()
+            train_s.append(time.perf_counter() - t0)
+        u, v, hist = runs[0]
+        same_factors(runs[0][:2], runs[1][:2], "8a")
+        fail_unless(runs[0][2] == runs[1][2], "8a: the mse histories differ")
+        fail_unless(hist[-1] < hist[0], "8a: the training mse did not fall")
+        # a bucket of the catalog's size: no posting list can spill
+        spec = RetrieverSpec(cfg=gam_mf.GAM, backend="gam-device",
+                             min_overlap=gam_mf.MIN_OVERLAP, kappa=KAPPA,
+                             bucket=n_i)
+        r = open_retriever(spec, items=v, device=DEVICE)
+        res = r.query(u)
+    launches_a = counts()
+    for name in ("gam_retrieve", "tess_project"):
+        fail_unless(launches_a[name] > 0, f"8a: {name} never launched")
+    ut = torch.as_tensor(u, device=DEVICE)
+    with Capture(gs, "gam_score") as cap_s:
+        o_vals, o_ids = masked_topk(ut, r._items_dev, r.candidate_masks(u),
+                                    KAPPA)
+    o_vals, o_ids = o_vals.cpu().numpy(), o_ids.cpu().numpy()
+    empty = o_vals <= NEG / 2
+    fail_unless(np.array_equal(res.ids, np.where(empty, -1, o_ids)),
+                "8a: served ids differ from the dense oracle")
+    fail_unless(max_ulp(np.where(empty, 0, res.scores),
+                        np.where(empty, 0, o_vals)) <= ULP,
+                "8a: served scores beyond 4 ulp of the dense oracle")
+    brute = open_retriever(RetrieverSpec(cfg=gam_mf.GAM, backend="brute",
+                                         kappa=KAPPA), items=v, device=DEVICE)
+    recall_a = float(recovery_accuracy(res.ids, brute.query(u).ids).mean())
+    launches_a["gam_score_oracle"] = gs.gam_score.launches
+    kernel_rows += learning_kernel_rows(
+        torch, cap_r.calls, cap_t.calls, cap_s.calls,
+        launches_a | {"gam_score": launches_a["gam_score_oracle"]}, "8a")
+    out["8a"] = {"ratings": int(len(vals)), "train_s": train_s,
+                 "history": hist, "recall": recall_a,
+                 "discarded": float(res.discarded_frac.mean()),
+                 "launches": launches_a}
+    print(f"learn 8a: train_mf (k 10, lr 0.005, 25 epochs, batch 8192) on "
+          f"{len(vals)} ratings of {n_u} x {n_i}: {train_s[0]:.2f} s, "
+          f"{train_s[1]:.2f} s, the two runs bit-identical; mse "
+          f"{hist[0]:.4f} -> {hist[-1]:.4f}; gam-device over V: {n_u} users "
+          f"at kappa {KAPPA}, ids = the dense oracle, recall@{KAPPA} vs brute "
+          f"{recall_a:.4f}, discarded {out['8a']['discarded']:.4f}; launches "
+          f"{launches_a}")
+    del r, brute, runs
+
+    # ---- 8b: one epoch at MovieLens-20M's shape
+    t0 = time.perf_counter()
+    rows, cols, vals = movielens_like_ratings(
+        seed=0, n_users=ML20M_USERS, n_items=ML20M_ITEMS,
+        density=ML20M_DENSITY)
+    gen_s = time.perf_counter() - t0
+    one = dc.replace(gam_mf.MF, epochs=1)
+    runs, epoch_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(train_mf(rows, cols, vals, ML20M_USERS, ML20M_ITEMS, one,
+                             device=DEVICE))
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    # the host's share of a call: the epoch's permutation, drawn alone
+    t0 = time.perf_counter()
+    np.random.default_rng(0).permutation(len(vals))
+    perm_s = time.perf_counter() - t0
+    same_factors(runs[0][:2], runs[1][:2], "8b")
+    fail_unless(runs[0][2] == runs[1][2], "8b: the mse histories differ")
+    fail_unless(all(np.isfinite(x).all() for x in runs[0][:2]),
+                "8b: non-finite factors")
+    n20 = int(len(vals))
+    out["8b"] = {"ratings": n20, "generator_s": gen_s, "epoch_s": epoch_s,
+                 "permutation_s": perm_s,
+                 "ratings_per_s": n20 / min(epoch_s),
+                 "steps": -(-n20 // one.batch), "mse": runs[0][2]}
+    print(f"learn 8b: movielens_like_ratings at {ML20M_USERS} x "
+          f"{ML20M_ITEMS}, density {ML20M_DENSITY}: {n20} ratings, "
+          f"{gen_s:.1f} s on the host; one epoch of train_mf (batch "
+          f"{one.batch}, {out['8b']['steps']} steps, the whole call) "
+          f"{epoch_s[0]:.2f} s and {epoch_s[1]:.2f} s, bit-identical, "
+          f"{out['8b']['ratings_per_s']:.0f} ratings/s; the permutation "
+          f"alone {perm_s:.2f} s on the host")
+    del rows, cols, vals, runs
+
+    # ---- 8c: online learning into the live service at 1M items
+    sim = DriftSimulator(n_users=LEARN_USERS, n_items=LEARN_ITEMS, k=K,
+                         seed=17, drift=0.2, hot_frac=0.5,
+                         events_per_round=LEARN_EVENTS)
+    items0 = sim.items_at_start
+    tau, mvals = sparse_map(torch.as_tensor(items0, device=DEVICE),
+                            gam_mf.GAM)
+    nz = (mvals != 0).cpu().numpy()
+    longest = int(np.bincount(tau.cpu().numpy()[nz],
+                              minlength=gam_mf.GAM.p).max())
+    del tau, mvals, nz
+    # pushes may lengthen a list by one entry each; the delta cannot hold
+    # more rows than the rounds push, so neither structure spills
+    spec = RetrieverSpec(
+        cfg=gam_mf.GAM, backend="sharded", n_shards=SVC_SHARDS,
+        min_overlap=gam_mf.MIN_OVERLAP, kappa=KAPPA,
+        bucket=longest + LEARN_ROUNDS * LEARN_EVENTS,
+        delta_bucket=LEARN_ROUNDS * LEARN_EVENTS, batch_size=BATCH)
+    t0 = time.perf_counter()
+    live = open_retriever(spec, items=items0, device=DEVICE)
+    frozen = open_retriever(spec, items=items0, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fail_unless(live.base.spills.shape[1] == 0, "8c: the shards spill")
+    trainer = StreamingMF(OnlineMFConfig(k=K, lr=0.5, momentum=0.6, reg=1e-4,
+                                         batch=1024, seed=3,
+                                         update_users=False), device=DEVICE)
+    trainer.warm_start(u=sim.users, v=items0)
+    tick = [0.0]
+    policy = PushPolicy(live, min_cos=0.995, staleness_s=4.0,
+                        clock=lambda: tick[0])
+    upsert_ms = []                      # a flush's upsert, on the host clock
+    live_upsert = live.upsert
+
+    def timed_upsert(ids, factors):
+        t0 = time.perf_counter()
+        live_upsert(ids, factors)
+        torch.cuda.synchronize()
+        upsert_ms.append((time.perf_counter() - t0) * 1e3)
+    live.upsert = timed_upsert
+    policy.seed(np.arange(LEARN_ITEMS), items0)
+    catalog = items0.copy()
+    users = sim.users
+    fit_ms, flush_ms, query_ms, recall = [], [], [], {}
+    gam_score_oracle = 0
+    for fn in (gr.gam_retrieve, tp.tess_project, gs.gam_score):
+        fn.launches = 0
+    with Capture(gr, "gam_retrieve") as cap_r, \
+            Capture(tp, "tess_project") as cap_t:
+        for rnd in range(1, LEARN_ROUNDS + 1):
+            tick[0] += 1.0
+            events = sim.step()
+            t0 = time.perf_counter()
+            fit = trainer.partial_fit(events)
+            torch.cuda.synchronize()
+            fit_ms.append((time.perf_counter() - t0) * 1e3)
+            touched = fit["touched_items"]
+            policy.offer(touched, trainer.item_factors(touched))
+            t0 = time.perf_counter()
+            p_ids, p_fac = policy.flush()
+            torch.cuda.synchronize()
+            flush_ms.append((time.perf_counter() - t0) * 1e3)
+            catalog[p_ids] = p_fac
+            t0 = time.perf_counter()
+            res = live.query(users)
+            torch.cuda.synchronize()
+            query_ms.append((time.perf_counter() - t0) * 1e3)
+            fail_unless(res.ids.shape == (LEARN_USERS, KAPPA),
+                        "8c: result shape")
+            with Uncounted(*kernels):
+                if rnd in LEARN_RECALL_ROUNDS:
+                    truth = sim.true_topk(KAPPA)
+                    recall[rnd] = {
+                        "online": sim.recall(res.ids, truth),
+                        "frozen": sim.recall(frozen.query(users).ids, truth)}
+                before = gs.gam_score.launches
+                check_oracle(torch, live, users, res, f"8c round {rnd}")
+                gam_score_oracle += gs.gam_score.launches - before
+    launches_c = counts()
+    for name in ("gam_retrieve", "tess_project"):
+        fail_unless(launches_c[name] > 0, f"8c: {name} never launched in "
+                    "the rounds")
+    fail_unless(policy.n_pushed > 0, "8c: no factor was pushed")
+    fail_unless(live.delta._index is None or
+                live.delta._index.spill.numel() == 0, "8c: the delta spills")
+    ids = np.arange(LEARN_ITEMS, dtype=np.int64)
+    fresh = open_retriever(spec, items=catalog, ids=ids, device=DEVICE)
+    fail_unless(fresh.base.spills.shape[1] == 0, "8c: the rebuild spills")
+    for exact in (False, True):
+        same_bits(live.query(users, exact=exact),
+                  fresh.query(users, exact=exact),
+                  f"8c: the live service (exact={exact}) differs from a "
+                  "sharded rebuild over the pushed catalog")
+    m = live.metrics.snapshot()
+    # the kernels line: the base and the last delta as the queries gave
+    # them to gam_retrieve, and tess_project at a round's queries and at
+    # the largest delta it mapped
+    biggest = max(key[0][0] for key in cap_t.calls)
+    deltas = [key[1][0] for key in cap_r.calls if key[1][0] != LEARN_ITEMS]
+    kernel_rows += learning_kernel_rows(
+        torch,
+        pick(cap_r.calls, lambda key: key[1][0] in (LEARN_ITEMS,
+                                                    max(deltas, default=0))),
+        pick(cap_t.calls, lambda key: key[0][0] in (LEARN_USERS, biggest)),
+        {}, launches_c, "8c")
+    out["8c"] = {
+        "items": LEARN_ITEMS, "events_per_round": LEARN_EVENTS,
+        "rounds": LEARN_ROUNDS, "build_two_s": build_s,
+        "pushed": policy.n_pushed, "suppressed": policy.n_suppressed,
+        "staleness_p50_s": m["push_staleness_p50_s"],
+        "partial_fit_ms": fit_ms, "flush_ms": flush_ms,
+        "upsert_ms": upsert_ms,
+        "query_ms": query_ms, "query_p50_ms": float(np.median(query_ms)),
+        "delta_rows": len(live.delta), "recall": recall,
+        "launches": launches_c, "gam_score_oracle": gam_score_oracle}
+    report["learning"] = out
+    print(f"learn 8c: {LEARN_ITEMS} items in {SVC_SHARDS} shards (live and "
+          f"frozen built in {build_s:.1f} s), {LEARN_ROUNDS} rounds of "
+          f"{LEARN_EVENTS} events: pushed {policy.n_pushed}, suppressed "
+          f"{policy.n_suppressed}, staleness p50 {m['push_staleness_p50_s']}"
+          f" s; partial_fit p50 {np.median(fit_ms):.2f} ms a round, flush "
+          f"(gate + upsert) p50 {np.median(flush_ms):.2f} ms of which the "
+          f"upsert {np.median(upsert_ms):.2f} ms, query of "
+          f"{LEARN_USERS} users p50 {np.median(query_ms):.3f} ms (host "
+          f"clock); delta {len(live.delta)} rows at the end; every answer = "
+          f"the dense oracle; after the last round live = a sharded rebuild "
+          f"bit for bit (exact False and True); launches {launches_c}")
+    print("learn 8c: recall@10 online / frozen against the drifted truth: "
+          + ", ".join(f"round {k} {v['online']:.4f} / {v['frozen']:.4f}"
+                      for k, v in recall.items()))
+    del live, frozen, fresh, trainer, policy, sim
+    torch.cuda.empty_cache()
+    return kernel_rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2315,6 +2761,10 @@ def main() -> int:
     kernels += phase_new_kernels(torch, report, keep)
     lap("7")
     del keep
+
+    # ---------------------------------------------- 8. the learning loop
+    kernels += phase_learning(torch, report)
+    lap("8")
     report["phase_s"] = phase_s
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))

@@ -1,14 +1,17 @@
 """The dense masked oracle and the paper's recovery metric, in PyTorch.
 
-Counterpart of the canonical half of ``repro.core.retrieval``:
+Counterpart of ``repro.core.retrieval``:
 :func:`masked_topk` scores through the ``gam_score`` kernel (its plain
 version on the CPU) and writes out the (score desc, row asc) order itself,
 as ``lax.top_k`` gives it; :func:`candidate_topk` gives the same answer for
 a flat candidate list (the ``gam`` backend's and the baselines' scoring);
-:func:`recovery_accuracy` is the paper's §6 metric.  The deprecated
-retriever shims are not ported.
+:func:`recovery_accuracy` is the paper's §6 metric.  ``GamRetriever`` and
+``BruteForceRetriever`` remain as the reference's deprecation shims: each
+warns with the new spelling and delegates everything to its backend.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -18,7 +21,8 @@ import torch
 import repro_torch.kernels.gam_score as _gs
 import repro_torch.kernels.ops as _ops
 
-__all__ = ["candidate_topk", "masked_topk", "recovery_accuracy", "topk_desc"]
+__all__ = ["BruteForceRetriever", "GamRetriever", "candidate_topk",
+           "masked_topk", "recovery_accuracy", "topk_desc"]
 
 # query rows x items of one dense candidate mask (bounds its temporaries)
 _MASK_CELLS = 1 << 25
@@ -81,6 +85,60 @@ def candidate_topk(users: torch.Tensor, factors: torch.Tensor,
         vals[c0:c1, :v.shape[1]] = torch.where(empty, -torch.inf, v)
         out[c0:c1, :v.shape[1]] = torch.where(empty, -1, r.to(torch.int64))
     return vals, out, torch.bincount(qrow, minlength=q)
+
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(f"{old} is deprecated; use {new} "
+                  "(see repro_torch.retriever — removed after one release)",
+                  DeprecationWarning, stacklevel=3)
+
+
+class BruteForceRetriever:
+    """DEPRECATED shim — use ``open_retriever(RetrieverSpec(cfg=...,
+    backend='brute'))``.  Exact top-kappa by scoring every item, on
+    ``device`` (``None``: the card)."""
+
+    def __init__(self, items: np.ndarray, *, device=None):
+        _deprecated("core.retrieval.BruteForceRetriever(items)",
+                    "repro_torch.retriever.open_retriever(RetrieverSpec("
+                    "cfg=GamConfig(k=...), backend='brute'), items=items)")
+        from repro_torch.core.mapping import GamConfig
+        from repro_torch.retriever import RetrieverSpec, open_retriever
+        items = np.asarray(items, np.float32)
+        spec = RetrieverSpec(cfg=GamConfig(k=items.shape[1]), backend="brute")
+        self._impl = open_retriever(spec, items=items, device=device)
+
+    def __getattr__(self, name):
+        if name == "_impl":      # not set yet (e.g. unpickling a bare shell)
+            raise AttributeError(name)
+        return getattr(self._impl, name)
+
+
+class GamRetriever:
+    """DEPRECATED shim — use ``open_retriever(RetrieverSpec(cfg=cfg,
+    backend='gam'|'gam-device', ...))``.  Paper's method: phi-map items
+    once, inverted index, candidate-only scoring.  ``device`` keeps its
+    legacy meaning (True: ``gam-device``); ``torch_device`` is where the
+    backend runs (``None``: the card)."""
+
+    def __init__(self, items: np.ndarray, cfg, min_overlap: int = 1,
+                 device: bool = False, bucket: int = 256,
+                 whiten: bool = False, *, torch_device=None):
+        backend = "gam-device" if device else "gam"
+        _deprecated("core.retrieval.GamRetriever(items, cfg, ...)",
+                    f"repro_torch.retriever.open_retriever(RetrieverSpec("
+                    f"cfg=cfg, backend={backend!r}, min_overlap=..., "
+                    f"bucket=..., whiten=...), items=items)")
+        from repro_torch.retriever import RetrieverSpec, open_retriever
+        spec = RetrieverSpec(cfg=cfg, backend=backend,
+                             min_overlap=min_overlap, bucket=bucket,
+                             whiten=whiten)
+        self._impl = open_retriever(spec, items=items, device=torch_device)
+
+    def __getattr__(self, name):
+        if name == "_impl":      # not set yet (e.g. unpickling a bare shell)
+            raise AttributeError(name)
+        return getattr(self._impl, name)
 
 
 def recovery_accuracy(retrieved_ids: np.ndarray,

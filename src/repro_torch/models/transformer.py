@@ -27,7 +27,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.arch_id}: the port serves the dense family (GQA/MHA "
             f"attention + SwiGLU); {what} comes with a later slice (ROADMAP "
-            f"queue 1, item 7: MoE, MLA, SSM, hybrid, encdec, VLM)")
+            f"queue 1, item 8: MoE, MLA, SSM, hybrid, encdec, VLM)")
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, layers: int,

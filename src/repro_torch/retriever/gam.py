@@ -74,6 +74,15 @@ class GamIndexRetriever(Retriever):
         self._items_dev: torch.Tensor | None = None
         self._retrieve_meta: RetrievalMeta | None = None
 
+    # the attribute surface of the deprecated GamRetriever shim
+    @property
+    def cfg(self):
+        return self.spec.cfg
+
+    @property
+    def min_overlap(self) -> int:
+        return self.spec.min_overlap
+
     # ------------------------------------------------------------ lifecycle
 
     def build(self, items, ids=None) -> "GamIndexRetriever":

@@ -96,7 +96,7 @@ class ShardedRetriever(Retriever):
             raise UnsupportedOp(spec.backend, "open_retriever",
                                 "the port's service tier serves 'sharded'; "
                                 "'sharded-multihost' comes with the "
-                                "multi-host slice (ROADMAP queue 1 item 4)")
+                                "multi-host slice (ROADMAP queue 1 item 6)")
         refuse_mesh(mesh)
         super().__init__(spec, device)
         self.clock = clock

@@ -18,25 +18,29 @@ per bn-group), ``DeltaSegment`` (streamed mutations, one launch),
 ``Microbatcher`` (size/deadline coalescing with QoS admission control),
 ``ServiceMetrics``, the QoS ladder, the fault injector and the result
 cache.  ``metrics``, ``qos``, ``faults``, ``result_cache``, ``microbatch``
-and ``collective`` are copies of the reference's jax-free modules.  The
-load generator and the deprecated ``GamService`` shim come with a later
-slice.
+and ``collective`` are copies of the reference's jax-free modules, and so is
+the load generator (``LoadGenerator`` / ``LoadProfile``, seeded Zipf
+traffic).  ``GamService`` remains as the reference's deprecation shim over
+the ``sharded`` backend.
 """
 from repro_torch.service.collective import HostPlacement, NoLiveReplica
 from repro_torch.service.compaction import CompactionPlanner
 from repro_torch.service.delta import DeltaSegment
 from repro_torch.service.faults import FaultInjected, FaultInjector, FaultSpec
+from repro_torch.service.loadgen import LoadGenerator, LoadProfile, zipf_weights
 from repro_torch.service.metrics import ServiceMetrics
 from repro_torch.service.microbatch import Microbatcher, QueryResult
 from repro_torch.service.qos import (DEGRADE_RUNGS, HealthTracker, QosPolicy,
                                      RequestShed, ResultEvicted)
 from repro_torch.service.repartition import MapCache, Partition, Repartitioner
 from repro_torch.service.result_cache import CachedResult, ResultCache
+from repro_torch.service.service import GamService, ServiceConfig
 from repro_torch.service.sharded_index import ShardedGamIndex, ShardTopK
 
 __all__ = ["CachedResult", "CompactionPlanner", "DEGRADE_RUNGS",
            "DeltaSegment", "FaultInjected", "FaultInjector", "FaultSpec",
-           "HealthTracker", "HostPlacement", "MapCache", "Microbatcher",
-           "NoLiveReplica", "Partition", "QosPolicy", "QueryResult",
-           "Repartitioner", "RequestShed", "ResultCache", "ResultEvicted",
-           "ServiceMetrics", "ShardTopK", "ShardedGamIndex"]
+           "GamService", "HealthTracker", "HostPlacement", "LoadGenerator",
+           "LoadProfile", "MapCache", "Microbatcher", "NoLiveReplica",
+           "Partition", "QosPolicy", "QueryResult", "Repartitioner",
+           "RequestShed", "ResultCache", "ResultEvicted", "ServiceConfig",
+           "ServiceMetrics", "ShardTopK", "ShardedGamIndex", "zipf_weights"]

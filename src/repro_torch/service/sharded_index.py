@@ -66,7 +66,7 @@ def refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise UnsupportedOp("sharded", "mesh",
                             "placing one index over a device mesh comes with "
-                            "the multi-host slice (ROADMAP queue 1 item 4)")
+                            "the multi-host slice (ROADMAP queue 1 item 6)")
 
 
 @dataclasses.dataclass

@@ -937,3 +937,87 @@ def test_pca_tree_on_card_equals_cpu_but_near_medians(dev):
         if torch.equal(ra[qa == qi], rb[qb == qi]):
             np.testing.assert_array_equal(a.ids[qi], b.ids[qi])
             np.testing.assert_array_equal(a.scores[qi], b.scores[qi])
+
+
+# --------------------------------------------- the learning loop on the card
+
+# trained factors on the card against the CPU's: the per-row sums run in
+# the same order on both (``scatter_rows``), the dot products and the
+# batch means reduce in another, so within these
+MF_FACTOR_TOL = dict(rtol=0, atol=1e-5)
+STREAM_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def test_scatter_rows_on_card_equals_cpu_bit_for_bit(dev):
+    from repro_torch.factorization.mf import scatter_rows
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, 943, 8192)
+    g = rng.normal(size=(8192, 10)).astype(np.float32)
+    card = scatter_rows(943, torch.as_tensor(rows, device=dev),
+                        torch.as_tensor(g, device=dev))
+    cpu = scatter_rows(943, torch.as_tensor(rows), torch.as_tensor(g))
+    assert torch.equal(card.cpu(), cpu)
+
+
+def test_train_mf_on_card_twice_gives_the_same_bits(dev):
+    from repro_torch.data import movielens_like_ratings
+    from repro_torch.factorization import MfConfig, train_mf
+    rows, cols, vals = movielens_like_ratings(seed=0)
+    cfg = MfConfig(k=10, epochs=3)
+    u0, v0, h0 = train_mf(rows, cols, vals, 943, 1682, cfg, device=dev)
+    u1, v1, h1 = train_mf(rows, cols, vals, 943, 1682, cfg, device=dev)
+    np.testing.assert_array_equal(u0, u1)
+    np.testing.assert_array_equal(v0, v1)
+    assert h0 == h1
+    uc, vc, hc = train_mf(rows, cols, vals, 943, 1682, cfg, device="cpu")
+    np.testing.assert_allclose(u0, uc, **MF_FACTOR_TOL)
+    np.testing.assert_allclose(v0, vc, **MF_FACTOR_TOL)
+    np.testing.assert_allclose(h0, hc, rtol=1e-6)
+
+
+@pytest.mark.parametrize("cfg", [dict(), dict(update_users=False,
+                                               clip_norm=0.5, batch=100)])
+def test_streaming_mf_on_card_within_tolerance_of_cpu(dev, cfg):
+    from repro_torch.online import DriftSimulator, OnlineMFConfig, StreamingMF
+    sims = [DriftSimulator(n_users=8, n_items=300, k=16, seed=13, drift=0.25,
+                           events_per_round=512) for _ in range(2)]
+    cfg = OnlineMFConfig(k=16, lr=0.5, momentum=0.6, seed=3, **cfg)
+    card, cpu = StreamingMF(cfg, device=dev), StreamingMF(cfg, device="cpu")
+    for t, sim in zip((card, cpu), sims):
+        t.warm_start(u=sim.users, v=sim.items_at_start)
+    for _ in range(4):
+        a, b = card.partial_fit(sims[0].step()), cpu.partial_fit(sims[1].step())
+        np.testing.assert_allclose(a["mse"], b["mse"], rtol=1e-5)
+        np.testing.assert_allclose(card.item_factors(), cpu.item_factors(),
+                                   **STREAM_TOL)
+        np.testing.assert_allclose(card.user_factors(), cpu.user_factors(),
+                                   **STREAM_TOL)
+        np.testing.assert_allclose(card._gsq["v"].cpu().numpy(),
+                                   cpu._gsq["v"].numpy(), **STREAM_TOL)
+    assert card.stats()["n_grows"] == cpu.stats()["n_grows"]
+
+
+def test_mf_state_round_trip_through_converters_on_card(dev):
+    from repro_torch.data import movielens_like_ratings
+    from repro_torch.factorization import MfConfig, train_mf
+    from repro_torch.factorization.convert import (
+        mf_state_from_reference, mf_state_to_reference)
+    from repro_torch.online import OnlineMFConfig, StreamingMF
+    rows, cols, vals = movielens_like_ratings(seed=2, n_users=100,
+                                              n_items=150)
+    u, v, _, state = train_mf(rows, cols, vals, 100, 150,
+                              MfConfig(k=10, epochs=2, batch=512),
+                              return_state=True, device=dev)
+    assert state.params["u"].device.type == "cuda"
+    params, vel, offset = mf_state_to_reference(state)
+    back = mf_state_from_reference(params, vel, offset, device=dev)
+    for key in ("u", "v"):
+        assert torch.equal(back.params[key], state.params[key])
+        assert torch.equal(back.vel[key], state.vel[key])
+    t = StreamingMF.from_state(back, OnlineMFConfig(k=10), device=dev)
+    np.testing.assert_array_equal(t.user_factors(), u)
+    np.testing.assert_array_equal(t.item_factors(), v)
+    # the numpy spelling, as a state from the reference arrives
+    t_np = StreamingMF.from_state(type(state)(params, vel, offset),
+                                  OnlineMFConfig(k=10), device=dev)
+    assert torch.equal(t_np._vel["v"], t._vel["v"])

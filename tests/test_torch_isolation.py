@@ -26,7 +26,9 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.core.baselines, repro_torch.kernels.ref\n"
             "import repro_torch.compress, repro_torch.compress.patterns\n"
             "import repro_torch.retriever.sharded, repro_torch.service\n"
-            "import repro_torch.obs\n"
+            "import repro_torch.obs, repro_torch.online, repro_torch.data\n"
+            "import repro_torch.factorization.convert, repro_torch.training\n"
+            "import repro_torch.configs.gam_mf\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
