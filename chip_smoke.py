@@ -181,6 +181,34 @@ Phases, each of which fails the run if it fails:
    printed.  The kernels are held against their plain versions on the
    inputs the rounds gave them (the oracle and the frozen queries do not
    count toward the launches).
+9. Multi-host serving.  9a: two processes (``chip_smoke.py
+   --multihost-worker``, spawned by ``repro_torch.launch.procs``) join
+   one gloo group and share the card (the phase fails, naming it, when
+   the compute mode is exclusive).  Each opens phase 6's catalog and
+   settings as ``sharded-multihost`` at 2 hosts, replication 2, beside an
+   in-process ``sharded`` retriever, and drives the same lifecycle:
+   build, a query and an exact one, 1,024 fresh + 1,024 rewritten upserts
+   and 512 deletes, a timed window of 100 requests (request p50/p99 on
+   the host clock, the ``host_topk`` / ``collective_gather`` /
+   ``collective_merge`` spans; host 0 then times ``sharded`` alone over
+   the same requests while host 1 waits, and holds 2 of them against the
+   dense oracle), ``mark_down(1)``, a background compaction with queries
+   mid-flight, a repartition, a snapshot from host 0 restored on both;
+   then a build at replication 1, where each host holds only its slice
+   (its device bytes and ``memory_allocated`` printed).  Every answer
+   must equal the ``sharded`` one bit for bit (ids, scores, ``n_scored``,
+   discarded fractions) and every request launch ``gam_retrieve`` once
+   per bn-group of the slices routed to its host plus once for the delta.
+   One slice's launch is held against its plain version and timed, each
+   host in turn (the ``gam_retrieve@multihost_slice`` rows).  9b: ``python
+   -m repro_torch.launch.serve --service --hosts 2 --replication 2
+   --fail-host 1 --items 1048576 --dim 10 --shards 8 --requests 64
+   --verify --snapshot chiprun_out/mh_snapshot.npz --metrics-out
+   chiprun_out/mh_metrics.prom`` must exit 0 with ``0 WRONG``, a failover
+   of host 1, the bit-identical snapshot probe and kernel launches on
+   both hosts; then ``--service`` at the same size and the LM mode at
+   ``--reduced`` (``decode_attention`` launched).  Both processes share
+   one card: the times measure the placement's overhead, not scaling.
 Then the ``kernels`` JSON line (every kernel, at each shape above), the
 card's name and power limit, and the result line.
 
@@ -191,6 +219,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -478,8 +507,8 @@ def phase_gam_index(torch, report, items, reqs, spec, answers, brute):
     phase 3's catalog and requests, against ``gam-device``'s answers, the
     dense oracle and ``brute``."""
     from repro_torch.core.retrieval import masked_topk, recovery_accuracy
-    from repro_torch.kernels import gam_score as gs
-    from repro_torch.kernels import tess_project as tp
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
     from repro_torch.retriever import RetrieverSpec, open_retriever
     dev = torch.device("cuda")
     out: dict = {}
@@ -738,7 +767,7 @@ def decode_row(torch, name, q, k, v, length, launches, reps, graphed):
     """A kernels-line entry for decode_attention on (q, k, v, length); the
     kernel, its plain version and SDPA timed alike, in a CUDA graph when
     ``graphed`` (microsecond calls), else by events around eager calls."""
-    from repro_torch.kernels import decode_attention as da
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
     b, hkv, g, hd = q.shape
     n = int(length) + 1
     got = da.decode_attention(q, k, v, length)
@@ -805,7 +834,7 @@ def unembed_patterns(torch, model, params):
     """(d, V) int8 ternary patterns of the unit unembedding rows, mapped as
     the GAM head maps them (threshold 1.5 / sqrt(d), Algorithm 2 through
     the tess_project kernel)."""
-    from repro_torch.kernels import tess_project as tp
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
     cfg = model.cfg
     w = (params["embed"] if cfg.tie_embeddings
          else params["lm_head"].T)[:cfg.vocab].float()
@@ -818,7 +847,7 @@ def phase_lm(torch, report, keep):
     """Phase 5: tinyllama-1.1b at full width, bf16, through Engine.generate
     with the decode_attention kernel; held against the einsum path."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as da
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
     from repro_torch.models import Model
     from repro_torch.serving import Engine, ServeConfig
     dev = torch.device("cuda")
@@ -990,9 +1019,9 @@ def phase_gam_head(torch, report, keep):
     full vocab (k = d_model = 512), through Engine(use_gam_head=True)."""
     from repro_torch.configs import get_config
     from repro_torch.core.retrieval import masked_topk
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import gam_score as gs
-    from repro_torch.kernels import tess_project as tp
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
     from repro_torch.models import Model
     from repro_torch.serving import Engine, ServeConfig
     dev = torch.device("cuda")
@@ -1232,8 +1261,8 @@ def phase_service(torch, report, items, centers, cfg, bucket):
     """Phase 6: the gam_mf-1M catalog behind the ``sharded`` backend on the
     card, with streamed mutations, a background compaction, a repartition
     and a snapshot; every request held against the dense oracle."""
-    from repro_torch.kernels import gam_retrieve as gr
-    from repro_torch.kernels import tess_project as tp
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
     from repro_torch.retriever import RetrieverSpec, open_retriever
     spec = RetrieverSpec(
         cfg=cfg, backend="sharded", n_shards=SVC_SHARDS,
@@ -1511,8 +1540,8 @@ def phase_service_int8(torch, report, items, centers, cfg, bucket):
     oracle where the pool covers it."""
     from repro_torch.core.retrieval import topk_desc
     from repro_torch.core.mapping import sparse_map
-    from repro_torch.kernels import gam_retrieve as gr
-    from repro_torch.kernels import gam_score as gs
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
     from repro_torch.retriever import RetrieverSpec, open_retriever
     spec = RetrieverSpec(cfg=cfg, backend="sharded", n_shards=SVC_SHARDS,
                          min_overlap=MIN_OVERLAP, kappa=KAPPA, bucket=bucket,
@@ -1863,7 +1892,7 @@ def retrieve_work(torch, args, kw, got) -> tuple[float, float]:
     """(bytes, operations) one ``gam_retrieve`` call must move and do, by
     phase 4's count: the shared metadata and kept tiles, each candidate
     row's factors once, 2k operations a (query, candidate) pair."""
-    from repro_torch.kernels import gam_retrieve as gr
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
     users, _, q_tau, q_mask, meta, kappa = args
     q, k = users.shape
     q_bits = gr.pack_patterns(q_tau, q_mask, meta.p)
@@ -1895,9 +1924,9 @@ def learning_kernel_rows(torch, cap_r, cap_t, cap_s, launches, where):
     ``gam_retrieve``, ``tess_project`` and ``gam_score`` re-run through the
     kernel and its plain version on the same inputs and timed, beside its
     bound.  ``launches``: the phase's main-path counts."""
-    from repro_torch.kernels import gam_retrieve as gr
-    from repro_torch.kernels import gam_score as gs
-    from repro_torch.kernels import tess_project as tp
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
     rows = []
     for key, (args, kw) in cap_r.items():
         got = gr.gam_retrieve(*args, **kw)
@@ -1987,9 +2016,9 @@ def phase_learning(torch, report):
     from repro_torch.core.retrieval import masked_topk, recovery_accuracy
     from repro_torch.data import movielens_like_ratings
     from repro_torch.factorization import train_mf
-    from repro_torch.kernels import gam_retrieve as gr
-    from repro_torch.kernels import gam_score as gs
-    from repro_torch.kernels import tess_project as tp
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
     from repro_torch.kernels.gam_score import NEG
     from repro_torch.online import (DriftSimulator, OnlineMFConfig,
                                     PushPolicy, StreamingMF)
@@ -2230,12 +2259,465 @@ def phase_learning(torch, report):
     return kernel_rows
 
 
+# ------------------------------------------------- 9. multi-host serving
+
+MH_HOSTS = 2                   # processes sharing the one card
+MH_WINDOW = 100                # requests in the timed window
+MH_ORACLE = 2                  # window requests host 0 holds to the oracle
+MH_GROUP_TIMEOUT = 600         # s: the gloo group's rendezvous, collectives
+MH_DEADLINE = 900              # s: both 9a workers, or the phase fails
+MH_LAUNCHER_TIMEOUT = 420      # s: each 9b launcher run
+
+
+def multihost_worker(rank: int, coordinator: str, bucket: int) -> int:
+    """Phase 9a's SPMD body: one of two processes sharing the card, joined
+    by a gloo group, each driving the same lifecycle on the
+    ``sharded-multihost`` backend (replication 2, then 1) beside an
+    in-process ``sharded`` retriever over the same catalog.  Prints its
+    numbers as one ``MH9 {json}`` line."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.mapping import GamConfig
+    from repro_torch.launch.procs import init_process_group
+    from repro_torch.obs.tracing import Tracer
+    from repro_torch.retriever import RetrieverSpec, open_retriever
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
+
+    init_process_group(coordinator, MH_HOSTS, rank,
+                       timeout_s=MH_GROUP_TIMEOUT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    items, centers = clustered_catalog(N_ITEMS, K, N_CLUSTERS, SIGMA,
+                                       seed=N_ITEMS)
+    stream = iter(requests(centers, 64, BATCH, SIGMA, seed=9))
+    cfg = GamConfig(k=K, scheme="parse_tree", threshold=THRESHOLD)
+
+    def spec(backend, **kw):
+        return RetrieverSpec(
+            cfg=cfg, backend=backend, n_shards=SVC_SHARDS,
+            min_overlap=MIN_OVERLAP, kappa=KAPPA, bucket=bucket,
+            delta_bucket=1 << 15, batch_size=BATCH,
+            options=(("compact_slice_rows", SVC_SLICE_ROWS),
+                     ("rebalance_target_blocks", SVC_TARGET_BLOCKS)), **kw)
+
+    def in_turn(fn):
+        """``fn`` on each host in turn, the other one waiting at a barrier:
+        a timing with the card to itself."""
+        for h in range(MH_HOSTS):
+            if h == rank:
+                fn()
+            dist.barrier()
+
+    checks = Uncounted((gr, "gam_retrieve"), (tp, "tess_project"),
+                       (gs, "gam_score"))
+    out: dict = {"host": rank, "device": str(dev),
+                 "launches_per_request": []}
+
+    def served(r, users, what, **kw):
+        """One request through the multi-host retriever, on the host clock;
+        its gam_retrieve launches must be the bn-groups of the slices routed
+        to this host plus one for a non-empty delta."""
+        g0 = gr.gam_retrieve.launches
+        t0 = time.perf_counter()
+        res = r.query(users, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = gr.gam_retrieve.launches - g0
+        routing = r.base.placement.route(r._down)
+        want = sum(len(r.base.get_slice(sl).metas)
+                   for sl, h in enumerate(routing) if h == rank)
+        want += 1 if len(r.delta) else 0
+        fail_unless(n == want, f"host {rank} {what}: gam_retrieve launched "
+                    f"{n} times, not {want} (the groups of its routed "
+                    "slices + the delta)")
+        out["launches_per_request"].append(n)
+        return res, ms
+
+    def same(res, users, what, **kw):
+        with checks:
+            want = single.query(users, **kw)
+        fail_unless(np.array_equal(res.ids, want.ids)
+                    and np.array_equal(res.scores, want.scores)
+                    and np.array_equal(res.n_scored, want.n_scored)
+                    and np.array_equal(res.discarded_frac,
+                                       want.discarded_frac),
+                    f"host {rank} {what}: the multi-host answer differs "
+                    "from single-host sharded")
+
+    def step(r, what, **kw):
+        users = next(stream)
+        res, _ = served(r, users, what, **kw)
+        same(res, users, what, **kw)
+        return users, res
+
+    # --- the main path: build, lifecycle, window; counts read after it
+    gr.gam_retrieve.launches = tp.tess_project.launches = 0
+    tracer = Tracer(clock=time.perf_counter)
+    t0 = time.perf_counter()
+    multi = open_retriever(spec("sharded-multihost", n_hosts=MH_HOSTS,
+                                replication=MH_HOSTS), items=items,
+                           device=dev, tracer=tracer)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    fail_unless(multi._distributed and multi.base.has_all_slices,
+                f"host {rank}: not a distributed host holding every slice")
+    with checks:
+        single = open_retriever(spec("sharded"), items=items, device=dev)
+    with Capture(gr, "gam_retrieve") as cap:
+        step(multi, "after build")
+    mine = [sl for sl, h in enumerate(multi.base.placement.route())
+            if h == rank]
+    out["placement"] = multi.base.placement.describe()
+    out["slice_rows"] = multi.base.get_slice(mine[0]).partition.n_rows
+    slice_calls = pick(cap.calls, lambda key: key[1][0] == out["slice_rows"])
+    fail_unless(len(slice_calls) == 1, f"host {rank}: no launch on its slice")
+    kernel_row = []
+
+    def slice_row():
+        with checks:
+            kernel_row.extend(learning_kernel_rows(
+                torch, slice_calls, {}, {}, {"gam_retrieve": 0},
+                "multihost_slice"))
+
+    in_turn(slice_row)
+    del cap, slice_calls
+    step(multi, "after build, exact", exact=True)
+
+    rng = np.random.default_rng(7)
+    fresh = np.arange(N_ITEMS, N_ITEMS + SVC_FRESH)
+    up_ids = np.concatenate([fresh, rng.choice(N_ITEMS, SVC_REWRITE,
+                                               replace=False)])
+    up = (centers[rng.integers(0, N_CLUSTERS, up_ids.size)]
+          + SIGMA * rng.normal(size=(up_ids.size, K))).astype(np.float32)
+    up /= np.linalg.norm(up, axis=1, keepdims=True)
+    dead = rng.choice(N_ITEMS, SVC_DELETE, replace=False)
+    multi.upsert(up_ids, up)
+    multi.delete(dead)
+    with checks:
+        single.upsert(up_ids, up)
+        single.delete(dead)
+    step(multi, "after upserts and deletes")
+
+    # the timed window on the uniform layout with the streamed delta (as
+    # phase 6's first window), the card shared: both hosts serve each
+    # request
+    dist.barrier()
+    tracer.finished.clear()
+    window = requests(centers, MH_WINDOW, BATCH, SIGMA, seed=19)
+    t0 = time.perf_counter()
+    got = [served(multi, u, "window") for u in window]
+    wall = time.perf_counter() - t0
+    ms = [m for _, m in got]
+    spans = {}
+    for name in ("host_topk", "collective_gather", "collective_merge",
+                 "map", "delta", "merge"):
+        d = [s.duration_s * 1e3 for tr in tracer.finished
+             for s in tr.find(name)]
+        spans[name] = {"n": len(d), "p50_ms": float(np.median(d)),
+                       "p99_ms": float(np.percentile(d, 99))}
+    fail_unless(spans["collective_gather"]["n"] == MH_WINDOW,
+                f"host {rank}: {spans['collective_gather']['n']} gathers "
+                f"traced in {MH_WINDOW} requests")
+    for u, (res, _) in zip(window, got):
+        same(res, u, "window")
+    out["window"] = {"requests": MH_WINDOW, "wall_s": wall,
+                     "qps": BATCH * MH_WINDOW / wall,
+                     "p50_ms": float(np.percentile(ms, 50)),
+                     "p99_ms": float(np.percentile(ms, 99)),
+                     "spans": spans}
+    single_ms = []
+
+    def single_window():
+        with checks:
+            for u in window:
+                t0 = time.perf_counter()
+                single.query(u)
+                torch.cuda.synchronize()
+                single_ms.append((time.perf_counter() - t0) * 1e3)
+
+    dist.barrier()
+    if rank == 0:                   # the single-host baseline, card alone
+        single_window()
+        out["single_window"] = {"p50_ms": float(np.percentile(single_ms, 50)),
+                                "p99_ms": float(np.percentile(single_ms, 99))}
+        for u, (res, _) in zip(window[:MH_ORACLE], got[:MH_ORACLE]):
+            with checks:
+                check_oracle(torch, single, u, res,
+                             "multi-host window vs the dense oracle")
+    dist.barrier()
+
+    multi.mark_down(1)
+    step(multi, "host 1 marked down")
+    out["failover"] = multi.host_status()
+    fail_unless(out["failover"]["n_failovers"] >= 1
+                and out["failover"]["routing"] == [0, 0],
+                f"host {rank}: mark_down(1) did not re-route to host 0")
+    multi.mark_up(1)
+    multi.compact(async_=True)
+    with checks:
+        single.compact(async_=True)
+    slices = 0
+    while multi.maintenance_stats()["compaction"]["active"]:
+        step(multi, f"compaction slice {slices}")
+        slices += 1
+        fail_unless(slices < 48, "the compaction never swapped")
+    out["compaction_slices"] = slices
+    part = multi.repartition(async_=False)
+    with checks:
+        fail_unless(single.repartition(async_=False) == part,
+                    f"host {rank}: the repartitions differ")
+    out["groups"] = len(part.groups)
+    step(multi, "after repartition")
+    step(multi, "after repartition, exact", exact=True)
+
+    # snapshot from host 0, restored on both
+    snap = ROOT / "build" / "chip_smoke_multihost.npz"
+    t0 = time.perf_counter()
+    if rank == 0:
+        multi.snapshot(str(snap))
+    dist.barrier()
+    with checks:
+        back = open_retriever(spec("sharded-multihost", n_hosts=MH_HOSTS,
+                                   replication=MH_HOSTS),
+                              snapshot=str(snap), device=dev)
+        probe = next(stream)
+        b = back.query(probe)
+    a, _ = served(multi, probe, "snapshot probe")
+    fail_unless(np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.scores, b.scores),
+                f"host {rank}: the restored snapshot answers differently")
+    out["snapshot_restore_s"] = time.perf_counter() - t0
+    dist.barrier()
+    if rank == 0:
+        snap.unlink()
+
+    # replication 1: each host holds only its half
+    out["device_bytes_r2"] = multi.base.device_bytes()
+    out["device_bytes_global"] = multi.base.global_index.device_bytes()
+    ids, fac = single._catalog_arrays()
+    del multi, back, a, b, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    multi1 = open_retriever(spec("sharded-multihost", n_hosts=MH_HOSTS,
+                                 replication=1), items=fac, ids=ids,
+                            device=dev)
+    torch.cuda.synchronize()
+    out["memory_r1"] = {"before": m0, "held": torch.cuda.memory_allocated()
+                        - m0, "peak_during_build":
+                        torch.cuda.max_memory_allocated() - m0}
+    out["device_bytes_r1"] = multi1.base.device_bytes()
+    fail_unless(not multi1.base.has_all_slices
+                and sorted(multi1.base.slices) == [rank],
+                f"host {rank} at replication 1 holds slices "
+                f"{sorted(multi1.base.slices)}, not [{rank}]")
+    # its share: the placement cuts the shards by rows, so a host's part
+    # of the index is its slice's shards of the whole
+    r1 = sum(out["device_bytes_r1"].values())
+    whole = sum(out["device_bytes_global"].values())
+    s_lo, s_hi = multi1.base.placement.slices[rank]
+    out["share_r1"] = {"shards": s_hi - s_lo, "of": SVC_SHARDS,
+                       "bytes_frac": r1 / whole}
+    fail_unless(abs(r1 / whole - (s_hi - s_lo) / SVC_SHARDS) < 0.05
+                and out["memory_r1"]["held"] < r1 + (64 << 20),
+                f"host {rank} at replication 1 holds {r1} bytes of the "
+                f"index ({out['memory_r1']['held']} allocated) against "
+                f"{whole} for the whole, with {s_hi - s_lo} of "
+                f"{SVC_SHARDS} shards")
+    for i in range(3):
+        step(multi1, f"replication 1, request {i}")
+    path = {"gam_retrieve": gr.gam_retrieve.launches,
+            "tess_project": tp.tess_project.launches}
+    out["launches"] = path
+    for name, n in path.items():
+        fail_unless(n > 0, f"host {rank}: {name} never launched on the "
+                    "multi-host path")
+    for row in kernel_row:
+        row["name"] = ("gam_retrieve@multihost_slice" if rank == 0 else
+                       f"gam_retrieve@multihost_slice@host{rank}")
+        row["launches"] = path["gam_retrieve"]
+    out["kernel_row"] = kernel_row
+    out["memory_allocated_end"] = torch.cuda.memory_allocated()
+    print("MH9 " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_launcher(args: list, what: str) -> tuple[str, float]:
+    """``python -m repro_torch.launch.serve <args>`` from the checkout, as
+    the leader of a new process group, so a launcher past its deadline is
+    killed with the workers it spawned.  Returns (stdout, seconds); fails
+    unless it exits 0."""
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve",
+                          *args], stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, env=env,
+                         cwd=ROOT, start_new_session=True)
+    try:
+        stdout, stderr = p.communicate(timeout=MH_LAUNCHER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise SystemExit(f"chip_smoke: FAILED: {what}: the launcher ran "
+                         f"past {MH_LAUNCHER_TIMEOUT} s")
+    seconds = time.perf_counter() - t0
+    print(f"launcher {what} ({seconds:.1f} s, exit {p.returncode}): "
+          f"python -m repro_torch.launch.serve {' '.join(args)}")
+    for line in stdout.splitlines():
+        print(f"  | {line}")
+    fail_unless(p.returncode == 0, f"{what}: the launcher exited "
+                f"{p.returncode}: {stderr[-3000:]}")
+    return stdout, seconds
+
+
+def launches_in(stdout: str, prefix: str) -> dict:
+    """The ``{kernel: launches}`` dict a launcher printed after
+    ``prefix`` (searched in the whole text: the lines of two hosts that
+    share one stdout may run into each other)."""
+    import ast
+    import re
+    found = re.search(re.escape(prefix) + r" *(\{[^{}]*\})", stdout)
+    fail_unless(found is not None, f"no '{prefix}' in the launcher's "
+                "output")
+    return ast.literal_eval(found.group(1))
+
+
+def phase_multihost(torch, report, bucket):
+    """Phase 9: multi-host serving.  9a: two processes share the card in one
+    gloo group (``launch.procs``) and run ``multihost_worker``; 9b: the
+    serve launcher with ``--hosts 2``, single-host ``--service`` and the LM
+    mode at ``--reduced``."""
+    import re
+    procs = importlib.import_module("repro_torch.launch.procs")
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    fail_unless("Exclusive" not in mode, f"the card's compute mode is "
+                f"{mode!r}: a second process cannot open a context on it, "
+                "so two hosts cannot share it")
+    torch.cuda.empty_cache()
+    # --- 9a
+    coordinator = procs.free_coordinator()
+    t0 = time.perf_counter()
+    codes, outs = procs.run_workers(
+        [[sys.executable, str(ROOT / "chip_smoke.py"), "--multihost-worker",
+          str(h), coordinator, str(bucket)] for h in range(MH_HOSTS)],
+        timeout=MH_DEADLINE, capture=True)
+    seconds_a = time.perf_counter() - t0
+    hosts = []
+    for h, text in enumerate(outs):
+        for line in text.splitlines():
+            if line.startswith("MH9 "):
+                hosts.append(json.loads(line[4:]))
+            else:
+                print(f"  [host {h}] {line}")
+    fail_unless(codes == [0] * MH_HOSTS and len(hosts) == MH_HOSTS,
+                f"multi-host workers exited {codes} (124: past the "
+                f"{MH_DEADLINE} s deadline)")
+    rows = []
+    for o in hosts:
+        w, sp = o["window"], o["window"]["spans"]
+        k = o["kernel_row"][0]
+        rows += o["kernel_row"]
+        print(f"multihost host {o['host']} ({o['device']}, compute mode "
+              f"{mode}): built in {o['build_s']:.1f} s; placement "
+              f"{o['placement']}; gam_retrieve launches {o['launches']} "
+              f"(per request {sorted(set(o['launches_per_request']))}, as "
+              f"the routing says); failover {o['failover']['routing']} "
+              f"({o['failover']['n_failovers']} failovers); compaction "
+              f"{o['compaction_slices']} slices; repartition to "
+              f"{o['groups']} groups; every answer = single-host sharded "
+              "bit for bit")
+        print(f"multihost host {o['host']}: window of {w['requests']} "
+              f"requests of {BATCH} (both hosts serving), request p50 "
+              f"{w['p50_ms']:.3f} ms p99 {w['p99_ms']:.3f} ms (host clock), "
+              f"{w['qps']:.1f} queries/s; spans p50: host_topk "
+              f"{sp['host_topk']['p50_ms']:.3f} ms, collective_gather "
+              f"{sp['collective_gather']['p50_ms']:.3f} ms, "
+              f"collective_merge {sp['collective_merge']['p50_ms']:.3f} ms"
+              + (f"; single-host sharded alone p50 "
+                 f"{o['single_window']['p50_ms']:.3f} ms p99 "
+                 f"{o['single_window']['p99_ms']:.3f} ms"
+                 if "single_window" in o else ""))
+        print(f"multihost host {o['host']}: {k['name']} ({o['slice_rows']} "
+              f"rows) {k['ms']:.4f} ms, plain {k['plain_ms']:.3f} ms, bound "
+              f"{k['bound_ms']:.5f} ms ({k['bound_by']}), max abs err "
+              f"{k['max_abs_err']}; replication 1: holds "
+              f"{o['share_r1']['shards']} of {o['share_r1']['of']} shards, "
+              f"{sum(o['device_bytes_r1'].values())} bytes of the index "
+              f"(replication 2: {sum(o['device_bytes_r2'].values())}, the "
+              f"global index {sum(o['device_bytes_global'].values())}), "
+              f"memory_allocated +{o['memory_r1']['held']} (peak during the "
+              f"build +{o['memory_r1']['peak_during_build']}); snapshot -> "
+              f"restore on both {o['snapshot_restore_s']:.1f} s, "
+              "bit-identical")
+    # --- 9b: the launcher
+    snap = ROOT / "chiprun_out" / "mh_snapshot.npz"
+    snap.parent.mkdir(exist_ok=True)
+    mh_args = ["--service", "--hosts", "2", "--replication", "2",
+               "--fail-host", "1", "--items", str(N_ITEMS), "--dim", str(K),
+               "--shards", str(SVC_SHARDS), "--requests", "64", "--verify",
+               "--snapshot", "chiprun_out/mh_snapshot.npz", "--metrics-out",
+               "chiprun_out/mh_metrics.prom"]
+    text, s_mh = run_launcher(mh_args, "--hosts 2")
+    fail_unless(re.search(r"verify: \d+ rounds bit-identical", text)
+                is not None and re.search(r"\b0 WRONG\b", text) is not None,
+                "--hosts 2: no verified rounds with '0 WRONG'")
+    n_fail = re.search(r"failovers=(\d+)", text)
+    fail_unless(n_fail is not None and int(n_fail.group(1)) >= 1
+                and "down=[1]" in text, "--hosts 2: no failover of host 1")
+    fail_unless("(probe bit-identical)" in text,
+                "--hosts 2: no bit-identical snapshot probe")
+    mh_launches = [launches_in(text, f"host {h} kernel launches:")
+                   for h in range(MH_HOSTS)]
+    for h, counts in enumerate(mh_launches):
+        fail_unless(all(n > 0 for n in counts.values()),
+                    f"--hosts 2: host {h} launched {counts}")
+    fail_unless(snap.exists(), "--hosts 2 wrote no snapshot")
+    snap.unlink()                   # too large to keep with the outputs
+    sh_args = ["--service", "--items", str(N_ITEMS), "--dim", str(K),
+               "--shards", str(SVC_SHARDS), "--requests", "64"]
+    text, s_sh = run_launcher(sh_args, "--service")
+    fail_unless("served 64/64 requests" in text, "--service did not serve "
+                "every request")
+    sh_launches = launches_in(text, "kernel launches:")
+    fail_unless(all(n > 0 for n in sh_launches.values()),
+                f"--service launched {sh_launches}")
+    lm_args = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "2",
+               "--prompt-len", "16", "--new-tokens", "8"]
+    text, s_lm = run_launcher(lm_args, "LM --reduced")
+    lm_launches = launches_in(text, "kernel launches:")
+    fail_unless(lm_launches["decode_attention"] > 0,
+                f"the LM mode launched {lm_launches}")
+    report["multihost"] = {
+        "compute_mode": mode, "workers_s": seconds_a, "hosts": hosts,
+        "launcher": {"hosts_2": {"s": s_mh, "launches": mh_launches},
+                     "service": {"s": s_sh, "launches": sh_launches},
+                     "lm_reduced": {"s": s_lm, "launches": lm_launches}}}
+    print(f"multihost: 9a {seconds_a:.1f} s; launcher --hosts 2 "
+          f"{s_mh:.1f} s (0 WRONG, failover, snapshot probe bit-identical, "
+          f"launches {mh_launches}), --service {s_sh:.1f} s ({sh_launches}),"
+          f" LM --reduced {s_lm:.1f} s ({lm_launches})")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        rank, coordinator, bucket = sys.argv[2:5]
+        return multihost_worker(int(rank), coordinator, int(bucket))
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.checkpoint import load_arrays
     from repro_torch.compress import quantize_int8, score_error_bound
@@ -2243,9 +2725,9 @@ def main() -> int:
     from repro_torch.core.retrieval import (masked_topk, recovery_accuracy,
                                             topk_desc)
     from repro_torch.kernels import _build
-    from repro_torch.kernels import gam_retrieve as gr
-    from repro_torch.kernels import gam_score as gs
-    from repro_torch.kernels import tess_project as tp
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
     from repro_torch.retriever import RetrieverSpec, open_retriever
 
     dev = torch.device("cuda")
@@ -2765,6 +3247,10 @@ def main() -> int:
     # ---------------------------------------------- 8. the learning loop
     kernels += phase_learning(torch, report)
     lap("8")
+
+    # ------------------------------------------- 9. multi-host serving
+    kernels += phase_multihost(torch, report, svc_bucket)
+    lap("9")
     report["phase_s"] = phase_s
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))

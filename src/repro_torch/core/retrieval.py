@@ -16,10 +16,12 @@ import warnings
 import numpy as np
 import torch
 
-# a module reference, not the function: ``kernels`` imports ``core`` while
-# ``core`` is still initialising when a kernel module is imported first
-import repro_torch.kernels.gam_score as _gs
+# ``ops`` as a module reference, resolved at call time: ``kernels`` imports
+# ``core`` while ``core`` is still initialising when ``core`` is imported
+# first.  (``kernels`` exports ``ops``' entry points under the names of
+# their modules, so a kernel module is reached by its full path.)
 import repro_torch.kernels.ops as _ops
+from repro_torch.kernels.gam_score import NEG
 
 __all__ = ["BruteForceRetriever", "GamRetriever", "candidate_topk",
            "masked_topk", "recovery_accuracy", "topk_desc"]
@@ -81,7 +83,7 @@ def candidate_topk(users: torch.Tensor, factors: torch.Tensor,
         mask = torch.zeros((c1 - c0, n), dtype=torch.bool, device=dev)
         mask[qrow[lo:hi] - c0, rows[lo:hi]] = True
         v, r = masked_topk(users[c0:c1], factors, mask, kappa)
-        empty = v <= _gs.NEG / 2
+        empty = v <= NEG / 2
         vals[c0:c1, :v.shape[1]] = torch.where(empty, -torch.inf, v)
         out[c0:c1, :v.shape[1]] = torch.where(empty, -1, r.to(torch.int64))
     return vals, out, torch.bincount(qrow, minlength=q)

@@ -5,10 +5,10 @@ field of the reference, so snapshot headers stay byte-compatible; the device
 is an argument of :func:`open_retriever` and of the backend constructors,
 not a spec field.  The port serves every single-host backend of the
 reference: ``brute``, ``gam`` (the CSR inverted index), ``gam-device`` (the
-fused kernel), the ``sharded`` service tier and the four §5.1 baselines
-(``srp-lsh``, ``superbit-lsh``, ``cro``, ``pca-tree``).
-``sharded-multihost`` raises, naming the slice that brings it.  Third-party
-backends join through :func:`register_backend`.
+fused kernel), the ``sharded`` service tier, its multi-host placement
+``sharded-multihost`` and the four §5.1 baselines (``srp-lsh``,
+``superbit-lsh``, ``cro``, ``pca-tree``).  Third-party backends join
+through :func:`register_backend`.
 """
 from __future__ import annotations
 
@@ -124,15 +124,12 @@ _MODULES: dict[str, tuple[str, str]] = {
     "gam": ("repro_torch.retriever.gam", "GamIndexRetriever"),
     "gam-device": ("repro_torch.retriever.gam", "GamIndexRetriever"),
     "sharded": ("repro_torch.retriever.sharded", "ShardedRetriever"),
+    "sharded-multihost": ("repro_torch.retriever.multihost",
+                          "MultiHostShardedRetriever"),
     "srp-lsh": ("repro_torch.retriever.baselines", "BaselineRetriever"),
     "superbit-lsh": ("repro_torch.retriever.baselines", "BaselineRetriever"),
     "cro": ("repro_torch.retriever.baselines", "BaselineRetriever"),
     "pca-tree": ("repro_torch.retriever.baselines", "BaselineRetriever"),
-}
-
-# backends of the reference not ported yet -> the ROADMAP slice bringing them
-_LATER = {
-    "sharded-multihost": "the multi-host slice (ROADMAP queue 1)",
 }
 
 BACKEND_IDS = tuple(_MODULES)
@@ -157,9 +154,6 @@ def available_backends() -> tuple[str, ...]:
 def _resolve(name: str):
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _LATER:
-        raise KeyError(f"retriever backend {name!r} is not ported yet: it "
-                       f"comes with {_LATER[name]}")
     if name not in _MODULES:
         raise KeyError(f"unknown retriever backend {name!r}; "
                        f"known: {sorted(available_backends())}")
@@ -175,8 +169,11 @@ def open_retriever(spec: RetrieverSpec, items: np.ndarray | None = None,
     """Resolve ``spec.backend`` and open a retriever on ``device`` (default
     ``cuda``; raises when no card is present).  With ``items`` the catalog
     is built, with ``snapshot`` restored, with neither left empty.  Extra
-    keyword arguments go to the backend (``sharded``: ``clock``,
-    ``tracer``, ``qos``, ``faults``; a ``mesh`` raises)."""
+    keyword arguments go to the backend (``sharded`` and
+    ``sharded-multihost``: ``clock``, ``tracer``, ``qos``, ``faults``; a
+    ``mesh`` raises).  Inside a ``torch.distributed`` process group the
+    card is this process's current CUDA device, which
+    ``launch.procs.init_process_group`` sets to ``rank % device_count``."""
     if items is not None and snapshot is not None:
         raise ValueError("pass either items or snapshot, not both")
     cls = _resolve(spec.backend)

@@ -20,6 +20,15 @@ Compressed catalogs: a posting table stored as a delta + group-varint CSR
 re-densified bit-identically; an int8 slab (``factors_q``/``scales``) is
 loaded as written, and a file whose meta says int8 but holds no slab is
 re-quantized from its ``items``, as the reference does.
+
+``sharded`` and ``sharded-multihost``: both packages write the same
+snapshot file, so a file crosses as it is.  A multi-host file (format v3
+and later) also carries its placement in the ``placement`` state entry
+(``HostPlacement.describe()``), which :func:`placement_from_state` reads.
+It records where the writer served each slice; it is not an input: a
+restore re-derives the placement from the opening spec and the restored
+partition, as the reference does, so a file rehosts onto any host count
+and a ``sharded`` file scales out.
 """
 from __future__ import annotations
 
@@ -35,9 +44,10 @@ from repro_torch.core.inverted_index import (CompressedInvertedIndex,
                                              csr_to_table, table_to_csr)
 from repro_torch.kernels.gam_retrieve import RetrievalMeta, quantize_meta
 from repro_torch.retriever.api import RetrieverSpec
+from repro_torch.service.collective import HostPlacement
 
 __all__ = ["csr_from_reference", "csr_to_reference", "index_from_reference",
-           "index_to_reference"]
+           "index_to_reference", "placement_from_state"]
 
 
 def csr_from_reference(arrays: dict, state: dict, *, n_items: int, p: int,
@@ -153,3 +163,15 @@ def index_to_reference(index: DeviceIndex, meta: RetrievalMeta, *,
                      "n_rows": meta.n_rows, "n_pad": meta.n_pad,
                      "quantize": meta.quantize}
     return arrays, state
+
+
+def placement_from_state(state: dict) -> HostPlacement | None:
+    """The placement a multi-host snapshot's writer served (None for a file
+    written by a single-host backend)."""
+    d = state.get("placement")
+    if d is None:
+        return None
+    return HostPlacement(int(d["n_hosts"]), int(d["replication"]),
+                         tuple(tuple(int(x) for x in s) for s in d["slices"]),
+                         tuple(tuple(int(x) for x in r)
+                               for r in d["replicas"]))

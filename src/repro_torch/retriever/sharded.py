@@ -4,9 +4,11 @@ Counterpart of ``repro.retriever.sharded``, on one torch device (the card
 unless the caller asks for the CPU): the base segment's posting tables,
 bitsets and factor slabs, the delta and the query batch live there, and
 every query launches ``gam_retrieve`` once per bn-group plus once for a
-non-empty delta.  The reference's ``mesh=`` placement is not ported (one
-card): passing a mesh raises :class:`UnsupportedOp` naming the multi-host
-slice.
+non-empty delta.  The reference's ``mesh=`` placement (one index over a
+device mesh) is not ported yet: passing a mesh raises
+:class:`UnsupportedOp` naming its slice.  ``sharded-multihost``
+(``retriever/multihost.py``) subclasses this backend to place it over host
+processes.
 
 Owns the three storage tiers and the request plumbing that used to live in
 ``service.GamService`` (now a deprecation shim over this class):
@@ -92,11 +94,6 @@ class ShardedRetriever(Retriever):
     def __init__(self, spec: RetrieverSpec, device: torch.device, *,
                  mesh=None, clock=time.monotonic, tracer=None, qos=None,
                  faults=None):
-        if spec.backend != "sharded":
-            raise UnsupportedOp(spec.backend, "open_retriever",
-                                "the port's service tier serves 'sharded'; "
-                                "'sharded-multihost' comes with the "
-                                "multi-host slice (ROADMAP queue 1 item 6)")
         refuse_mesh(mesh)
         super().__init__(spec, device)
         self.clock = clock

@@ -17,23 +17,25 @@ rows), the accumulators are all-gathered across processes, and
 over the concatenation — bit-identical to the single-host ``sharded``
 backend merging the same shards in one process.
 
-The port's copy of ``repro.service.collective`` without the cross-process
-gather (``allgather_accumulators``), which comes with the multi-host slice
-on ``torch.distributed``; the single-host ``sharded`` backend needs only
-:class:`NoLiveReplica`, and :class:`HostPlacement` and :func:`merge_topk`
-come along for that slice.
+Counterpart of ``repro.service.collective``.  The cross-process gather
+(:func:`allgather_accumulators`) runs on ``torch.distributed``: one
+``all_gather`` of the host's payloads as a CPU tensor over the gloo
+backend.  Single-process deployments (and the tier-1 tests) run the same
+code with no process group, where the gather is the identity, so the merge
+path is identical in and out of a process group.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.kernels.gam_retrieve import TOPK_EMPTY_ROW
 from repro_torch.kernels.gam_score import NEG
 
-__all__ = ["HostPlacement", "NoLiveReplica", "empty_accumulators",
-           "merge_topk"]
+__all__ = ["HostPlacement", "NoLiveReplica", "allgather_accumulators",
+           "empty_accumulators", "merge_topk", "process_group"]
 
 
 class NoLiveReplica(RuntimeError):
@@ -185,3 +187,60 @@ def empty_accumulators(q: int, kappa: int) -> tuple[np.ndarray, np.ndarray]:
     routed slice contributes to the gather."""
     return (np.full((q, kappa), NEG, np.float32),
             np.full((q, kappa), int(TOPK_EMPTY_ROW), np.int32))
+
+
+def process_group() -> tuple[int, int | None]:
+    """``(world size, rank)`` of the default ``torch.distributed`` process
+    group, or ``(1, None)`` when none is initialised — the counterpart of
+    ``jax.process_count()`` / ``jax.process_index()``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, None
+
+
+def allgather_accumulators(scores: np.ndarray, rows: np.ndarray,
+                           shard_candidates: np.ndarray,
+                           tile_stats: np.ndarray
+                           ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                      np.ndarray]:
+    """All-gather per-host accumulators across the process group.
+
+    Inputs are THIS host's (Q, kappa) exported accumulator (f32 scores,
+    int32 global rows), its (Q, S) per-shard candidate counts (zero for
+    shards it did not serve) and its (2,) tile-skip statistic
+    [skipped-weighted numerator, block total]; outputs are (Q, P * kappa)
+    concatenated accumulators plus the global candidate counts and tile
+    stats (summed with numpy over the host axis — the router serves every
+    slice exactly once, so the sums are exact and the same bits on every
+    host).  With no process group, or one process: the identity.
+
+    The four payloads travel as one int32 CPU tensor (the f32 ones by their
+    bits) in one ``all_gather`` over the group's backend, which must move
+    CPU tensors (gloo: NCCL refuses two ranks on one card, and the payload
+    is O(Q * kappa) — about 20 KB a host at Q 256, kappa 10).
+    """
+    world, _ = process_group()
+    if world == 1:
+        return scores, rows, shard_candidates, tile_stats
+    import torch.distributed as dist
+
+    s = np.ascontiguousarray(scores, np.float32)
+    r = np.ascontiguousarray(rows, np.int32)
+    c = np.ascontiguousarray(shard_candidates, np.int32)
+    t = np.ascontiguousarray(tile_stats, np.float32)
+    parts = (s.view(np.int32), r, c, t.view(np.int32))
+    mine = torch.from_numpy(np.concatenate([p.ravel() for p in parts]))
+    bufs = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(bufs, mine)
+    flat = torch.stack(bufs).numpy()                   # (P, payload)
+    cuts = np.cumsum([p.size for p in parts])[:-1]
+    g_s, g_r, g_c, g_t = np.split(flat, cuts, axis=1)
+    q, kappa = s.shape
+    g_s = np.ascontiguousarray(g_s).view(np.float32).reshape(world, q, kappa)
+    g_r = g_r.reshape(world, q, kappa)
+    cat_s = g_s.transpose(1, 0, 2).reshape(q, world * kappa)
+    cat_r = g_r.transpose(1, 0, 2).reshape(q, world * kappa)
+    return (cat_s, cat_r, g_c.reshape((world,) + c.shape).sum(axis=0),
+            np.ascontiguousarray(g_t).view(np.float32).sum(axis=0))

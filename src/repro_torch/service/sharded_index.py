@@ -29,9 +29,10 @@ answers bit-identically to the single-launch layout and to the dense oracle
 :meth:`ShardedGamIndex.query_dense_reference`.
 
 The ``mesh=`` placement of the reference (one index spread over several
-devices) is not ported: one card holds the index, and a mesh raises
-:class:`~repro_torch.retriever.types.UnsupportedOp` naming the multi-host
-slice.
+devices) is not ported yet: one device holds the index, and a mesh raises
+:class:`~repro_torch.retriever.types.UnsupportedOp` naming the sharding
+slice.  Spreading the catalog over processes is the ``sharded-multihost``
+backend's placement.
 """
 from __future__ import annotations
 
@@ -62,11 +63,12 @@ _MASK_CHUNK = 1 << 24
 
 
 def refuse_mesh(mesh) -> None:
-    """The port serves one index from one card: a mesh raises."""
+    """One index lives on one device: a mesh raises."""
     if mesh is not None:
         raise UnsupportedOp("sharded", "mesh",
                             "placing one index over a device mesh comes with "
-                            "the multi-host slice (ROADMAP queue 1 item 6)")
+                            "the sharding slice (ROADMAP queue 1 item 8, "
+                            "sharding/specs.py)")
 
 
 @dataclasses.dataclass

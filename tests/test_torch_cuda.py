@@ -6,6 +6,12 @@ also runs where JAX is not installed, without the suite's conftest:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 """
+import importlib
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -14,9 +20,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.compress import quantize_int8  # noqa: E402
 from repro_torch.core.inverted_index import build_segment  # noqa: E402
 from repro_torch.core.mapping import GamConfig, sparse_map  # noqa: E402
-from repro_torch.kernels import gam_retrieve as gr  # noqa: E402
-from repro_torch.kernels import gam_score as gs  # noqa: E402
-from repro_torch.kernels import tess_project as tp  # noqa: E402
+gr = importlib.import_module("repro_torch.kernels.gam_retrieve")  # noqa: E402
+gs = importlib.import_module("repro_torch.kernels.gam_score")  # noqa: E402
+tp = importlib.import_module("repro_torch.kernels.tess_project")  # noqa: E402
 from repro_torch.retriever import RetrieverSpec, open_retriever  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -494,7 +500,7 @@ def test_decode_attention_kernel_equals_plain(dev, b, hkv, g, hd, s, dtype):
     than the plain version).  bf16 within one bf16 step: both sides compute
     in f32 on the same bf16 inputs and round once, so rtol 2^-7 of the value
     over an atol of 1e-5."""
-    from repro_torch.kernels import decode_attention as da
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
     q, k, v = _decode_inputs(dev, b, hkv, g, hd, s, dtype, b * s + hd)
     rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-5)
     for length in (s - 1, s // 2, 0):
@@ -518,7 +524,7 @@ def test_decode_attention_bf16_length_in_last_splits_first_tile(dev, b, hkv,
     the last split (that split walks one partial tile), and at the second
     position of the one before it (the last split then walks none).  One
     bf16 step, as above."""
-    from repro_torch.kernels import decode_attention as da
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     _, _, _, tile, chunk, n_split = da.decode_splits(b, hkv, g, hd, s, sms, 2)
     assert n_split > 2
@@ -533,7 +539,7 @@ def test_decode_attention_bf16_length_in_last_splits_first_tile(dev, b, hkv,
 
 def test_bf16_attention_kernels_are_bit_identical_across_runs(dev):
     """No atomics: the same inputs give the same bits, run after run."""
-    from repro_torch.kernels import decode_attention as da
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
     from repro_torch.kernels import flash_prefill as fp
     q, k, v = _decode_inputs(dev, 8, 4, 8, 64, 1064, torch.bfloat16, 5)
     runs = [da.decode_attention(q, k, v, 1054) for _ in range(3)]
@@ -547,7 +553,7 @@ def test_bf16_attention_kernels_are_bit_identical_across_runs(dev):
 
 
 def test_decode_attention_kernel_ignores_positions_past_length(dev):
-    from repro_torch.kernels import decode_attention as da
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
     q, k, v = _decode_inputs(dev, 2, 2, 4, 64, 600, torch.bfloat16, 3)
     out1 = da.decode_attention(q, k, v, 300)
     k[:, 301:] = 99.0
@@ -561,7 +567,7 @@ def test_decode_kernel_model_path_equals_einsum_path(dev):
     through the kernel equal the reference's einsum path within 1e-4 (f32),
     and the kernel launches once per layer and step."""
     from repro_torch.configs import get_reduced_config
-    from repro_torch.kernels import decode_attention as da
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
     from repro_torch.models import Model
     cfg = get_reduced_config("tinyllama-1.1b").with_(n_heads=8, n_kv_heads=1,
                                                      vocab=300)
@@ -770,7 +776,7 @@ def test_sharded_retriever_on_card_equals_cpu(dev, quantize, tmp_path):
     CPU, bit for bit: build, mutations, a background compaction, a
     repartition to narrow blocks (bn 8 and 16) and a snapshot round trip;
     ``gam_retrieve`` launches once per bn-group and once for the delta."""
-    from repro_torch.kernels import gam_retrieve as gr
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
     items = unit_factors(700, 16, 5)
     users = unit_factors(24, 16, 6)
     spec = RetrieverSpec(cfg=CFG, backend="sharded", n_shards=4,
@@ -1021,3 +1027,97 @@ def test_mf_state_round_trip_through_converters_on_card(dev):
     t_np = StreamingMF.from_state(type(state)(params, vel, offset),
                                   OnlineMFConfig(k=10), device=dev)
     assert torch.equal(t_np._vel["v"], t._vel["v"])
+
+
+# ------------------------------------------------------- multi-host serving
+
+
+@pytest.mark.parametrize("n_hosts,replication", [(2, 1), (2, 2), (3, 2)])
+def test_multihost_on_card_equals_cpu(dev, n_hosts, replication):
+    """``sharded-multihost`` on the card answers like the same backend on
+    the CPU and like ``sharded`` on the card, bit for bit, through
+    mutations, a failover, a background compaction and a repartition;
+    ``gam_retrieve`` launches once per bn-group of each routed slice plus
+    once for the delta; carved slices are contiguous copies on the card."""
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    items = unit_factors(700, 16, 15)
+    users = unit_factors(24, 16, 16)
+
+    def spec(backend, **kw):
+        return RetrieverSpec(cfg=CFG, backend=backend, n_shards=4,
+                             min_overlap=2, bucket=512,
+                             options=(("compact_slice_rows", 128),), **kw)
+
+    mh = spec("sharded-multihost", n_hosts=n_hosts, replication=replication)
+    rs = {"cpu": open_retriever(mh, items=items, device="cpu"),
+          "cuda": open_retriever(mh, items=items, device="cuda"),
+          "sharded": open_retriever(spec("sharded"), items=items,
+                                    device="cuda")}
+
+    def same(tag, **kw):
+        a = rs["cuda"].query(users, **kw)
+        for other in ("cpu", "sharded"):
+            b = rs[other].query(users, **kw)
+            np.testing.assert_array_equal(a.ids, b.ids, err_msg=tag)
+            np.testing.assert_array_equal(a.scores, b.scores, err_msg=tag)
+            np.testing.assert_array_equal(a.n_scored, b.n_scored,
+                                          err_msg=tag)
+
+    same("build")
+    same("build exact", exact=True)
+    for r in rs.values():
+        r.upsert(np.arange(690, 720), unit_factors(30, 16, 17))
+        r.delete(np.arange(0, 700, 13))
+    base = rs["cuda"].base
+    n_slices = base.placement.n_slices
+    before = gr.gam_retrieve.launches
+    rs["cuda"].query(users)
+    want = sum(len(base.get_slice(sl).metas) for sl in range(n_slices)) + 1
+    assert gr.gam_retrieve.launches == before + want
+    for sl in range(n_slices):
+        sub = base.get_slice(sl)
+        if sub is not base.global_index:
+            assert sub.device.type == "cuda"
+            assert all(m.item_bits_t.is_contiguous() for m in sub.metas)
+    same("mutations")
+    if replication >= 2:
+        for r in (rs["cpu"], rs["cuda"]):
+            r.mark_down(1)
+        same("host 1 down")
+    for r in rs.values():
+        r.compact(async_=True)
+    while rs["cuda"].maintenance_stats()["compaction"]["active"]:
+        same("mid-compaction")
+    parts = [r.repartition(async_=False) for r in rs.values()]
+    assert parts[0] == parts[1] == parts[2]
+    same("repartitioned")
+    same("repartitioned exact", exact=True)
+
+
+def _run(cmd, timeout):
+    """``python <cmd>`` from the repository's root, under a deadline."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    return subprocess.run([sys.executable, *cmd], capture_output=True,
+                          text=True, timeout=timeout, env=env, cwd=root)
+
+
+def test_two_processes_share_the_card_in_the_multihost_contract(dev):
+    """``run_multiprocess_torch.py`` with two gloo processes, both on
+    ``cuda:0``: every lifecycle step equals single-host ``sharded``."""
+    for replication in (2, 1):
+        out = _run(["tests/multihost/run_multiprocess_torch.py",
+                    "--processes", "2", "--device", "cuda", "--items",
+                    "4000", "--replication", str(replication), "--timeout",
+                    "240"], timeout=300)
+        assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+        assert "device cuda" in out.stdout
+
+
+def test_serve_launcher_hosts_2_on_the_card(dev, tmp_path):
+    out = _run(["-m", "repro_torch.launch.serve", "--service", "--hosts",
+                "2", "--replication", "2", "--fail-host", "1", "--items",
+                "4000", "--shards", "4", "--requests", "32", "--verify",
+                "--snapshot", str(tmp_path / "mh.npz")], timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "0 WRONG" in out.stdout and "probe bit-identical" in out.stdout

@@ -29,7 +29,7 @@ from repro.core.retrieval import masked_topk as j_masked_topk  # noqa: E402
 from repro.kernels.gam_score import gam_score as j_gam_score  # noqa: E402
 from repro_torch.core.inverted_index import DeviceIndex  # noqa: E402
 from repro_torch.core.retrieval import masked_topk  # noqa: E402
-from repro_torch.kernels import gam_retrieve as tgr  # noqa: E402
+tgr = importlib.import_module("repro_torch.kernels.gam_retrieve")  # noqa: E402
 
 # the package re-exports a function of the same name, so load the module
 jgr = importlib.import_module("repro.kernels.gam_retrieve")
@@ -293,7 +293,10 @@ def test_masked_topk_and_candidate_masks_match_reference(n, q, kappa, mo,
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """On a CPU tensor the kernel wrappers raise; only ops dispatches."""
-    from repro_torch.kernels import gam_score, ops, tess_project
+    from repro_torch.kernels import ops
+    gam_score = importlib.import_module("repro_torch.kernels.gam_score")
+    tess_project = importlib.import_module(
+        "repro_torch.kernels.tess_project")
     z = torch.zeros((2, 4))
     with pytest.raises(ValueError):
         tess_project.tess_project(z)

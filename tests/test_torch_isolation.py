@@ -12,7 +12,17 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py",
+    ROOT / "tests" / "multihost" / "run_multiprocess_torch.py"]
+REFERENCE_PACKAGES = sorted(
+    p.parent.name for p in (ROOT / "src" / "repro").glob("*/__init__.py"))
+# names of the reference's package namespaces that only the reference has,
+# each with the ROADMAP queue 1 item that brings it
+REFERENCE_ONLY = {
+    "checkpoint": {"restore_checkpoint": 8, "save_checkpoint": 8,
+                   "tree_paths": 8},
+    "training": {"EvalResult": 8, "eval_batches": 8},
+}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -29,6 +39,12 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.obs, repro_torch.online, repro_torch.data\n"
             "import repro_torch.factorization.convert, repro_torch.training\n"
             "import repro_torch.configs.gam_mf\n"
+            "import repro_torch.retriever.multihost, repro_torch.launch\n"
+            "import repro_torch.launch.procs, repro_torch.launch.serve\n"
+            "import importlib.util as u, pathlib\n"
+            f"p = pathlib.Path({str(PORT_FILES[-1])!r})\n"
+            "spec = u.spec_from_file_location('runner', p)\n"
+            "spec.loader.exec_module(u.module_from_spec(spec))\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -77,13 +93,39 @@ def test_no_file_of_the_port_imports_jax_or_repro(path):
                 f"{path.name}:{node.lineno} imports {name}")
 
 
+def _reference_all(package: str) -> list:
+    """``__all__`` of ``repro.<package>``, read from its source (no JAX)."""
+    path = ROOT / "src" / "repro" / package / "__init__.py"
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return sorted(ast.literal_eval(node.value))
+    return []
+
+
+@pytest.mark.parametrize("package", REFERENCE_PACKAGES)
+def test_package_namespaces_export_what_the_reference_exports(package):
+    """Every shared package's ``__all__`` holds the reference's names, but
+    for the named ones only the reference has; each exported name
+    resolves."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{package}")
+    want = set(_reference_all(package)) - set(REFERENCE_ONLY.get(package, ()))
+    got = set(mod.__all__)
+    assert want <= got, sorted(want - got)
+    assert not set(REFERENCE_ONLY.get(package, ())) & got
+    for name in got:
+        assert getattr(mod, name) is not None, name
+
+
 def test_open_retriever_without_device_never_runs_on_cpu(monkeypatch):
     from repro_torch.core.mapping import GamConfig
     from repro_torch.retriever import RetrieverSpec, open_retriever
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     items = np.eye(16, dtype=np.float32)
-    for backend in ("gam", "gam-device", "brute", "sharded", "srp-lsh",
-                    "superbit-lsh", "cro", "pca-tree"):
+    for backend in ("gam", "gam-device", "brute", "sharded",
+                    "sharded-multihost", "srp-lsh", "superbit-lsh", "cro",
+                    "pca-tree"):
         spec = RetrieverSpec(cfg=GamConfig(k=16), backend=backend)
         with pytest.raises(RuntimeError, match="CUDA"):
             open_retriever(spec, items)
@@ -154,3 +196,17 @@ def test_index_and_baseline_structures_without_device_never_run_on_cpu(
                                k=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         baseline_from_reference(object())
+
+
+def test_serve_launcher_without_device_never_runs_on_cpu(monkeypatch):
+    """``python -m repro_torch.launch.serve`` takes the card unless given
+    ``--device cpu``: with none present it raises before building anything,
+    in every mode."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--service", "--items", "50"],
+                 ["--service", "--hosts", "2", "--replication", "2"],
+                 ["--reduced", "--vocab", "64"]):
+        monkeypatch.setattr(sys, "argv", ["serve", *argv])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main()

@@ -11,9 +11,11 @@ port's online tier (``StreamingMF`` + ``PushPolicy`` on a fake round
 clock) through the same program, mirroring whatever ``flush`` pushed into
 the oracle; ``cached_query`` pins the result-cache contract (a warm repeat
 is a counted hit equal to the oracle; a mutation in between makes a stale
-hit impossible).  ``sharded-multihost`` waits for the multi-host slice, so
-its ``mark_down`` / ``mark_up`` ops are no-ops here.  The hypothesis
-variant is marked ``slow``, as the reference's is.
+hit impossible).  ``sharded-multihost`` runs at 2 hosts, replication 2,
+so its ``mark_down`` / ``mark_up`` ops re-route real placement slices and
+host stalls make the breaker fail hosts over, as in the reference's
+harness.  The hypothesis variant is marked ``slow``, as the reference's
+is.
 """
 import os
 
@@ -32,8 +34,9 @@ from repro_torch.service.faults import (FaultInjected,  # noqa: E402
                                         FaultInjector)
 
 TCFG = GamConfig(k=CFG.k, scheme=CFG.scheme, d=CFG.d, threshold=CFG.threshold)
-BACKENDS = ["brute", "gam", "gam-device", "sharded"]
+BACKENDS = ["brute", "gam", "gam-device", "sharded", "sharded-multihost"]
 ID_POOL = 64                       # ops address catalog ids 0..63
+N_HOSTS = 2                        # multihost programs run 2 hosts, rep 2
 USERS = unit_factors(6, CFG.k, 991)
 
 TAGS = ("upsert", "delete", "compact", "compact_async", "step",
@@ -54,6 +57,11 @@ def _spec(backend):
         # cache on, so EVERY check() also exercises the hot-query memo
         kw.update(n_shards=2, cache_capacity=32,
                   options=(("compact_slice_rows", 16),))
+    elif backend == "sharded-multihost":
+        # replication == n_hosts keeps snapshots legal mid-program
+        kw.update(n_shards=2, n_hosts=N_HOSTS, replication=N_HOSTS,
+                  cache_capacity=32,
+                  options=(("compact_slice_rows", 16),))
     return RetrieverSpec(cfg=TCFG, backend=backend, **kw)
 
 
@@ -72,6 +80,7 @@ class LifecycleHarness:
                                      ids=ids, device="cpu")
         self.tmp = tmp_path
         self.n_snapshots = 0
+        self.faults_active = False     # host faults can auto-mark_down
         # online tier riding the same program: trainer over the id pool,
         # policy publishing into self.r on a fake round clock
         self.clock = [0.0]
@@ -90,16 +99,24 @@ class LifecycleHarness:
                                    atol=1e-6, err_msg=tag)
 
     def _set_faults(self, a, b):
-        """Attach / clear a seeded injector (the reference's third choice,
-        a host stall, needs hosts: it leaves the injector as it is)."""
-        if self.backend != "sharded":
+        """Attach / clear a seeded injector.  Host faults (stall) only go on
+        while no host is marked down, so some live unfaulted replica always
+        exists for every slice — parity stays checkable; the breaker is
+        free to auto-mark_down the faulted host in the meantime."""
+        if self.backend not in ("sharded", "sharded-multihost"):
             return
         choice = a % 3
         if choice == 0:
             self.r.faults = None
+            self.faults_active = False
         elif choice == 1:
             # every upsert/delete raises FaultInjected (pre-mutation)
             self.r.faults = FaultInjector("delta_error=1.0", seed=b % 97)
+            self.faults_active = True
+        elif self.backend == "sharded-multihost" and not self.r._down:
+            self.r.faults = FaultInjector(
+                f"stall=0.5,hosts={b % N_HOSTS}", seed=b % 97)
+            self.faults_active = True
 
     def apply(self, op):
         tag, a, b = op
@@ -118,12 +135,20 @@ class LifecycleHarness:
                 pass
             else:
                 self.oracle.delete([a % ID_POOL])
-        elif tag in ("mark_down", "mark_up"):
-            pass         # host health: no single-host backend has hosts
+        elif tag == "mark_down":
+            # never strand a slice: with host faults active the breaker may
+            # already be marking hosts down, and the last live host stays up
+            if (self.backend == "sharded-multihost"
+                    and not self.faults_active
+                    and len(self.r._down | {a % N_HOSTS}) < N_HOSTS):
+                self.r.mark_down(a % N_HOSTS)
+        elif tag == "mark_up":
+            if self.backend == "sharded-multihost":
+                self.r.mark_up(a % N_HOSTS)
         elif tag == "inject_fault":
             self._set_faults(a, b)
         elif tag == "deadline_query":
-            if self.backend == "sharded":
+            if self.backend in ("sharded", "sharded-multihost"):
                 if a % 2:
                     # a generous budget never degrades: exact answers stay
                     # bit-identical to the oracle
@@ -410,7 +435,8 @@ def test_snapshot_mid_repartition_build_is_consistent(tmp_path):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("backend", ["sharded", "gam-device"])
+@pytest.mark.parametrize("backend",
+                         ["sharded", "sharded-multihost", "gam-device"])
 def test_lifecycle_hypothesis_interleavings(backend, tmp_path):
     """Hypothesis-generated op streams over the same flat encoding (tuples
     shrink towards short, small programs)."""

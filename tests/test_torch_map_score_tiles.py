@@ -41,6 +41,7 @@ f32).  The model walks the kernels' grids (query chunks, items a thread,
 ragged Q and N) and must write every output once, equal to the plain version
 bit for bit and to the reference within its tolerance.
 """
+import importlib
 import re
 from pathlib import Path
 
@@ -54,7 +55,7 @@ from test_torch_tessellation import near_tie_rows  # noqa: E402
 
 from repro.kernels.gam_score import gam_score as j_gam_score  # noqa: E402
 from repro.kernels.tess_project import tess_project as j_tess_project  # noqa: E402
-from repro_torch.kernels import tess_project as ttp  # noqa: E402
+ttp = importlib.import_module("repro_torch.kernels.tess_project")  # noqa: E402
 from repro_torch.kernels.gam_score import NEG, gam_score_plain  # noqa: E402
 
 CSRC = Path(ttp.__file__).resolve().parent / "csrc"

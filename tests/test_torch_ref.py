@@ -7,6 +7,8 @@ each query's dot-product scale (``assert_scores_close``); the attention and
 coarse oracles within 1e-5 (f32 softmax / matmul, summed in different
 orders by the two packages).
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -19,7 +21,7 @@ from test_torch_gam_retrieve import assert_scores_close  # noqa: E402
 from repro.core.inverted_index import DeviceIndex as JDeviceIndex  # noqa: E402
 from repro.core.mapping import sparse_map as j_sparse_map  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import gam_retrieve as tgr  # noqa: E402
+tgr = importlib.import_module("repro_torch.kernels.gam_retrieve")  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 NEG = -1e30

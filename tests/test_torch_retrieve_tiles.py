@@ -33,6 +33,8 @@ from the plain version's on rows that tie the pool's edge within that
 tolerance, as ``test_torch_gam_retrieve`` allows; the model equals the plain
 version exactly.
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -46,7 +48,7 @@ from test_torch_gam_retrieve import (_assert_pool_close,  # noqa: E402
 
 from repro.core.inverted_index import DeviceIndex as JDeviceIndex  # noqa: E402
 from repro_torch.compress.quantize import dequantize_int8  # noqa: E402
-from repro_torch.kernels import gam_retrieve as tgr  # noqa: E402
+tgr = importlib.import_module("repro_torch.kernels.gam_retrieve")  # noqa: E402
 from repro_torch.kernels.gam_score import NEG, fma_dot  # noqa: E402
 
 

@@ -1,12 +1,14 @@
 """The port's ``gam-device`` and ``brute`` backends against ``repro``'s, end to
 end on the CPU: answers, explain, mutations, snapshots in both directions,
 the compressed catalog (int8 slab + exact re-rank, varint posting storage),
-and the settings the port does not serve yet.
+and the settings the port refuses with a typed error.
 
 ids, ``n_scored``, ``discarded_frac`` and every ``explain`` field match
 exactly; scores within 4 ulp of the dot-product scale (see
 ``test_torch_gam_retrieve``).
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,7 @@ import repro.retriever as jr  # noqa: E402
 import repro_torch.retriever as tr  # noqa: E402
 from repro.configs import gam_mf  # noqa: E402
 from repro_torch.core.mapping import GamConfig  # noqa: E402
+from repro_torch.retriever.multihost import MultiHostIndex  # noqa: E402
 
 N_ITEMS, N_QUERIES = 2048, 64
 
@@ -200,10 +203,16 @@ def test_older_snapshot_formats_read_as_the_reference_reads_them(
 def test_unsupported_settings_raise_typed_errors():
     _, tspec = _specs("cfg")
     cfg = tspec.cfg
-    with pytest.raises(KeyError, match="slice"):
-        tr.open_retriever(
-            tr.RetrieverSpec(cfg=cfg, backend="sharded-multihost"),
-            device="cpu")
+    # a multi-host host that does not replicate every placement slice
+    # cannot snapshot
+    multi = tr.open_retriever(
+        tr.RetrieverSpec(cfg=cfg, backend="sharded-multihost", n_shards=2,
+                         n_hosts=2, replication=1, min_overlap=2),
+        items=unit_factors(40, 16, 0), device="cpu")
+    multi.base = MultiHostIndex.from_global(
+        multi.base.global_index, multi.base.placement, local_host=0)
+    with pytest.raises(tr.UnsupportedOp, match="every placement slice"):
+        multi.snapshot(os.devnull)
     # the CSR index and the baselines hold no dense masks or provenance
     gam = tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="gam"),
                             items=unit_factors(10, 16, 0), device="cpu")
@@ -213,8 +222,8 @@ def test_unsupported_settings_raise_typed_errors():
                             items=unit_factors(10, 16, 0), device="cpu")
     with pytest.raises(tr.UnsupportedOp, match="explain|provenance"):
         lsh.query(unit_factors(2, 16, 1), explain=True)
-    # the sharded tier serves one card: a device mesh names its slice
-    with pytest.raises(tr.UnsupportedOp, match="multi-host slice"):
+    # one index lives on one device: a device mesh names its slice
+    with pytest.raises(tr.UnsupportedOp, match="item 8"):
         tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="sharded"),
                           device="cpu", mesh=object())
     with pytest.raises(KeyError, match="unknown"):

@@ -1,14 +1,17 @@
 """The cross-backend contract suite on the port, beside ``repro``'s.
 
 Mirrors ``tests/test_retriever_contract.py`` for ``brute``, ``gam``,
-``gam-device`` and ``sharded`` (on the CPU), plus the baseline cases.
+``gam-device``, ``sharded`` and ``sharded-multihost`` (on the CPU), plus
+the baseline cases.
 Wherever the reference suite holds a backend against the reference's own
 ``gam``, the port's backend is also held against the reference's ``gam``
 on the same inputs: ids, ``n_scored``, ``discarded_frac`` and ``explain``
 exact, scores within 4 ulp of each query's dot-product scale
 (``assert_scores_close``).  ``gam`` snapshots cross between the packages
 in both directions, flat and compressed, with the reference's bytes.
-``sharded-multihost`` raises a ``KeyError`` naming its slice.
+``sharded-multihost`` runs the whole contract (the lifecycle, snapshots
+in the reference's v3 placement format), and a host without every
+placement slice refuses to snapshot.
 """
 import os
 
@@ -28,7 +31,7 @@ from repro_torch.retriever import (BACKEND_IDS, RetrieverSpec,  # noqa: E402
                                    UnsupportedOp, available_backends,
                                    open_retriever, register_backend)
 
-BACKENDS = ["brute", "gam", "gam-device", "sharded"]
+BACKENDS = ["brute", "gam", "gam-device", "sharded", "sharded-multihost"]
 BASELINES = ["srp-lsh", "superbit-lsh", "cro", "pca-tree"]
 TCFG = GamConfig(k=CFG.k, scheme=CFG.scheme, d=CFG.d,
                  threshold=CFG.threshold)
@@ -39,6 +42,10 @@ def _kw(backend, kw):
     kw.setdefault("bucket", 512)
     if backend == "sharded":
         kw.setdefault("n_shards", 2)
+    if backend == "sharded-multihost":
+        kw.setdefault("n_shards", 4)
+        kw.setdefault("n_hosts", 2)
+        kw.setdefault("replication", 2)
     return kw
 
 
@@ -79,10 +86,31 @@ def test_unknown_backend_is_a_loud_keyerror():
         open_retriever(RetrieverSpec(cfg=TCFG, backend="faiss"), device="cpu")
 
 
-def test_sharded_multihost_raises_naming_its_slice():
-    with pytest.raises(KeyError, match="multi-host slice"):
-        open_retriever(RetrieverSpec(cfg=TCFG, backend="sharded-multihost"),
-                       device="cpu")
+def test_sharded_multihost_host_without_every_slice_refuses_snapshot(
+        tmp_path):
+    """The contract row of a host that replicates only some placement
+    slices (replication < n_hosts in a process group): it answers, and
+    ``snapshot`` raises :class:`UnsupportedOp` writing nothing."""
+    from repro_torch.retriever.multihost import MultiHostIndex
+    items = _factors(120, CFG.k, 30)
+    users = _factors(4, CFG.k, 31)
+    r = _open("sharded-multihost", items, replication=1)
+    want = r.query(users, 10)
+    full = r.base
+    r.base = MultiHostIndex.from_global(full.global_index, full.placement,
+                                        local_host=1)
+    assert not r.base.has_all_slices
+    path = tmp_path / "partial.npz"
+    with pytest.raises(UnsupportedOp, match="every placement slice"):
+        r.snapshot(str(path))
+    assert not path.exists()
+    r.base = full
+    r.snapshot(str(path))                      # every slice held: it writes
+    restored = open_retriever(_spec("sharded-multihost", replication=1),
+                              snapshot=str(path), device="cpu")
+    got = restored.query(users, 10)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
 
 
 def test_register_backend_extends_registry():
@@ -188,7 +216,7 @@ def test_background_compact_is_part_of_the_contract(backend):
     after = r.query(users, 10)
     np.testing.assert_array_equal(before.ids, after.ids)
     np.testing.assert_array_equal(before.scores, after.scores)
-    if backend == "sharded":
+    if backend in ("sharded", "sharded-multihost"):
         assert steps > 0
         assert r.maintenance_stats()["generation"] == gen0 + 1
         assert len(r.delta) == 0
@@ -197,14 +225,15 @@ def test_background_compact_is_part_of_the_contract(backend):
 def test_maintenance_stats_surface():
     items = _factors(64, CFG.k, 25)
     for backend in BACKENDS + BASELINES:
-        ms = open_retriever(RetrieverSpec(cfg=TCFG, backend=backend),
-                            items=items, device="cpu").maintenance_stats()
+        ms = open_retriever(_spec(backend), items=items,
+                            device="cpu").maintenance_stats()
         assert ms["backend"] == backend
         assert ms["generation"] == 0
         assert ms["compaction"]["active"] is False
 
 
-@pytest.mark.parametrize("backend", ["gam", "gam-device", "sharded"])
+@pytest.mark.parametrize("backend", ["gam", "gam-device", "sharded",
+                                     "sharded-multihost"])
 def test_pruned_mode_matches_gam_candidate_semantics(backend):
     """All index backends share one candidate definition, so with a common
     generous bucket their pruned answers equal the reference's ``gam`` (and
@@ -218,7 +247,7 @@ def test_pruned_mode_matches_gam_candidate_semantics(backend):
         np.testing.assert_array_equal(res.ids, want.ids)
         np.testing.assert_array_equal(res.n_scored, want.n_scored)
         assert_scores_close(res.scores, want.scores, users, items)
-    if backend == "sharded":
+    if backend in ("sharded", "sharded-multihost"):
         dev = _open("gam-device", items).query(users, 10)
         np.testing.assert_array_equal(got.ids, dev.ids)
         np.testing.assert_array_equal(got.scores, dev.scores)
@@ -300,7 +329,7 @@ def test_candidate_masks_support_matrix():
     users = _factors(3, CFG.k, 17)
     masks = _open("gam-device", items).candidate_masks(users)
     assert masks.shape == (3, 100) and masks.dtype == torch.bool
-    for backend in ["brute", "gam", "sharded"]:
+    for backend in ["brute", "gam", "sharded", "sharded-multihost"]:
         with pytest.raises(UnsupportedOp):
             _open(backend, items).candidate_masks(users)
 
@@ -329,8 +358,8 @@ def test_explain_is_pure_observation(backend, exact):
     again = r.query(users, 10, exact=exact)
     np.testing.assert_array_equal(plain.ids, again.ids)
     np.testing.assert_array_equal(plain.scores, again.scores)
-    if backend == "gam":
-        ref = jr.open_retriever(_jspec("gam"), items=items)
+    if backend in ("gam", "sharded-multihost"):
+        ref = jr.open_retriever(_jspec(backend), items=items)
         ref.upsert(np.arange(300, 308), _factors(8, CFG.k, 42))
         want = ref.query(users, 10, exact=exact, explain=True)
         assert explained.explain == want.explain
@@ -359,6 +388,13 @@ def test_explain_backend_schemas():
     from_delta = res.ids >= 400
     assert (src[from_delta] == "delta").all()
     assert (src[(res.ids >= 0) & ~from_delta] == "base").all()
+
+    r = _open("sharded-multihost", items)
+    exp = r.query(users, kappa, explain=True).explain
+    sl, rep = np.asarray(exp["slice"]), np.asarray(exp["replica"])
+    assert sl.shape == rep.shape == (q, kappa)
+    assert (sl >= 0).all() and (rep >= 0).all()       # no delta, no failover
+    assert sl.max() < r.base.placement.n_slices
 
 
 @pytest.mark.parametrize("backend", BASELINES)

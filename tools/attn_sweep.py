@@ -28,6 +28,7 @@ Prints the card's name and power limit and one JSON line per measurement.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import re
 import subprocess
@@ -161,7 +162,7 @@ def main() -> int:
         print("attn_sweep: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from repro_torch.kernels import decode_attention as da
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
     from repro_torch.kernels import flash_prefill as fp
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import re
 import subprocess
@@ -219,7 +220,7 @@ def tess_as_before(torch, z):
     """The ``tess_project`` wrapper as it was: the ``ctypes`` signature set
     and the device entered on every call."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels import tess_project as tp
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
     if z.device.type != "cuda":
         raise ValueError("needs a CUDA tensor")
     if z.dtype != torch.float32 or z.dim() != 2 or not z.is_contiguous():
@@ -253,8 +254,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
     from repro_torch.kernels import _build
-    from repro_torch.kernels import gam_score as gs
-    from repro_torch.kernels import tess_project as tp
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import re
 import subprocess
@@ -156,14 +157,14 @@ class using:
 
     def __enter__(self):
         from repro_torch.kernels import _build
-        from repro_torch.kernels import gam_retrieve as gr
+        gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
         self.real = _build.library("gam_retrieve")
         _build._loaded["gam_retrieve"] = self.lib
         gr._plans.clear()
 
     def __exit__(self, *exc):
         from repro_torch.kernels import _build
-        from repro_torch.kernels import gam_retrieve as gr
+        gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
         _build._loaded["gam_retrieve"] = self.real
         gr._plans.clear()
 
@@ -275,8 +276,8 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.core.mapping import GamConfig, sparse_map
     from repro_torch.core.retrieval import topk_desc
-    from repro_torch.kernels import gam_retrieve as gr
-    from repro_torch.kernels import gam_score as gs
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
     from repro_torch.retriever import RetrieverSpec, open_retriever
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
                           "clocks.max.sm", "--format=csv,noheader"],
