@@ -209,6 +209,39 @@ Phases, each of which fails the run if it fails:
    both hosts; then ``--service`` at the same size and the LM mode at
    ``--reduced`` (``decode_attention`` launched).  Both processes share
    one card: the times measure the placement's overhead, not scaling.
+10. The other LM families at their published widths, bf16, seeded random
+   weights, each through ``Engine.generate`` (greedy, 32 new tokens, one
+   warm-up and 2 timed calls, launches counted from 0 around them) with
+   ``use_decode_kernel=True``, as the launcher serves them: 10a
+   olmoe-1b-7b (16 layers, 64 experts top 8; batch 8, prompts of 1,024,
+   capacity 1,064), 10b deepseek-v2-236b with its depth cut to 4 of 60
+   layers (60 need about 476 GB; MLA, 160 experts top 6 + 2 shared; batch
+   8, prompts of 1,024), 10c mamba2-780m (48 layers; batch 8, prompts of
+   1,024: 4 SSD chunks), 10d recurrentgemma-9b (38 layers: 12 groups + 2
+   tail; batch 4, prompts of 2,304, past the 2,048 window, so the ring
+   wraps), 10e whisper-tiny (batch 8, frames (8, 1,500, 80), prompts of 4)
+   and 10f internvl2-26b whole (48 layers; batch 8, 256 image embeddings
+   of 3,200 + 768 tokens, capacity 1,064).  ``decode_attention`` must
+   launch exactly layers x 31 times a call where the reference's decode
+   takes the kernel branch (10a, 10e, 10f) and never elsewhere (MLA, SSM,
+   the hybrid's ring).  10a, 10e, 10f: teacher-forced on the kernel path's
+   tokens, the einsum path's bf16 logits within 8 bf16 steps of the
+   largest (phase 5's tolerance), for MoE on each row's steps before the
+   first position where the two paths' routing differs (``RoutingLog``:
+   a near-tie of gates broken the other way after rounding in another
+   order; counted and printed); ``decode_attention`` at each layout on the
+   live cache, held within one bf16 step of its plain version and timed
+   beside it, SDPA and its bound (the ``decode_attention@<arch>`` rows).
+   f32 with fresh weights, batch 2: prefill + teacher-forced decode steps =
+   the forward over the same tokens within 1e-3 (10a under a dropless
+   capacity factor 8.0, 16 layers; 10b under 27.0 at 2 layers, 36 GB; 10d
+   over the wrapped ring), within 1e-2 for 10c (1,024 + 256 steps against
+   5 chunks, and a 1,000-token prefill, the single-chunk branch, against 4
+   chunks; ``SSD_FWD_TOL`` says why).  Prefill ms, decode-step p50/p99,
+   tokens/s, peak memory (above what earlier phases hold), the kernel's
+   share of a step, dropped (token, slot) pairs a decode step (10a, 10b:
+   capacity 1 at batch 8) and 10b's latent-cache bytes against a per-head
+   K/V cache are printed.
 Then the ``kernels`` JSON line (every kernel, at each shape above), the
 card's name and power limit, and the result line.
 
@@ -2709,6 +2742,465 @@ def phase_multihost(torch, report, bucket):
     return rows
 
 
+# ---------------------------------------------- 10. the other LM families
+
+FAM_BATCH, FAM_PROMPT, FAM_NEW = 8, 1024, 32
+FAM_CALLS = 2                  # timed, after one warm-up
+FAM_F32_BATCH = 2              # the f32 forward checks
+DEEPSEEK_LAYERS = 4            # of 60: 60 layers need about 476 GB in bf16
+DEEPSEEK_F32_LAYERS = 2        # its f32 forward check: 36 GB of weights
+DEEPSEEK_DROPLESS = 27.0       # capacity >= T: int(27 T 6 / 160) >= T
+OLMOE_DROPLESS = 8.0           # E / K
+RG_BATCH, RG_PROMPT = 4, 2304  # past the 2,048 window: the ring wraps
+SSD_SINGLE = 1000              # a prompt the SSD takes as one chunk
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 4
+VLM_PROMPT = 768               # behind 256 image tokens
+# f32 logits of prefill + decode against the forward, for the attention,
+# MLA, MoE and RG-LRU families: every matmul runs at another shape and the
+# scan / recurrence sums in another order, a few 1e-6 at full depth and
+# narrow width on the CPU (2.5e-6 olmoe, 2.4e-6 recurrentgemma); 1e-3 as
+# phase 5's f32 tolerance
+F32_FWD_TOL = 1e-3
+# the same for mamba2: the chunked SSD's decay exp(cum_i - cum_j) is a
+# difference of two f32 cumulative sums of up to q terms of about -0.8
+# (q = 256, or 1,000 on the single-chunk branch), which the decode path's
+# step-by-step recurrence does not share; at full depth and narrow width on
+# the CPU the logits drift 6.1e-4 (1,024 + 256 steps against 5 chunks) and
+# 2.0e-3 (the 1,000-token single chunk); 1e-2 leaves 5x
+SSD_FWD_TOL = 1e-2
+
+
+class RoutingLog:
+    """Records each ``moe_ffn`` call's routing while a path runs: the call
+    is wrapped, and ``moe.route`` on the same input (the function the call
+    itself runs first) gives each token's experts and kept pairs, (B, S, K)
+    each, sorted by expert.  A no-op for models without MoE."""
+
+    def __init__(self, torch, enabled: bool):
+        self.torch, self.enabled, self.calls = torch, enabled, []
+        self.moe = importlib.import_module("repro_torch.models.moe")
+
+    def __enter__(self):
+        if self.enabled:
+            orig = self.orig = self.moe.moe_ffn
+
+            def logged(params, x, cfg):
+                b, s, d = x.shape
+                r = self.moe.route(params, x.reshape(b * s, d), cfg)
+                keep = self.torch.empty_like(r.keep)
+                keep[r.order] = r.keep
+                order = self.torch.argsort(r.expert, dim=1)
+                self.calls.append(tuple(
+                    self.torch.gather(a, 1, order).reshape(b, s, -1)
+                    .cpu().numpy() for a in (r.expert, keep.reshape(b * s,
+                                                                    -1))))
+                return orig(params, x, cfg)
+
+            self.moe.moe_ffn = logged
+        return self
+
+    def __exit__(self, *exc):
+        if self.enabled:
+            self.moe.moe_ffn = self.orig
+
+    def by_layer(self, n_layers: int) -> list:
+        """Per layer (experts, kept) over the positions of all its calls."""
+        return [tuple(np.concatenate([c[i] for c in self.calls[layer::
+                                                               n_layers]],
+                                     axis=1) for i in (0, 1))
+                for layer in range(n_layers)]
+
+    def dropped(self, n_layers: int, skip: int) -> np.ndarray:
+        """Dropped pairs of each call after the first ``skip`` passes,
+        summed over the layers of a pass: one number a decode step."""
+        per_call = [int((~c[1]).sum()) for c in self.calls[skip * n_layers:]]
+        return np.asarray(per_call).reshape(-1, n_layers).sum(axis=1)
+
+
+def first_routing_diff(a: list, b: list) -> np.ndarray:
+    """Per batch row, the first position whose experts or kept pairs differ
+    at any layer between two logs (inf where none).  A row's computation
+    depends only on its own routing, so its logits agree up to rounding
+    before that position; past it they may not, with no kernel at fault: a
+    near-tie of gates (or of two tokens' ranks within an expert's capacity)
+    was broken the other way after rounding in another order."""
+    n = min(a[0][0].shape[1], b[0][0].shape[1])
+    diff = np.zeros(a[0][0].shape[:1] + (n,), bool)
+    for (ea, ka), (eb, kb) in zip(a, b):
+        diff |= ((ea[:, :n] != eb[:, :n]) | (ka[:, :n] != kb[:, :n])).any(-1)
+    return np.where(diff.any(1), diff.argmax(1), np.inf)
+
+
+def held_steps(first: np.ndarray, p0: int, steps: int) -> np.ndarray:
+    """(B, steps): step t's logits (position p0 - 1 + t) precede the row's
+    first routing difference."""
+    return (p0 - 1 + np.arange(steps))[None, :] < first[:, None]
+
+
+def family_batch(torch, cfg, b, prompt, seed):
+    """Prompt tokens and the family's extras (whisper's frames, the VLM's
+    image embeddings), f32 from a numpy rng, on the card."""
+    dev = torch.device("cuda")
+    r = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(r.integers(0, cfg.vocab, (b, prompt)),
+                                       device=dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(r.normal(size=(
+            b, WHISPER_FRAMES, cfg.d_frontend)).astype(np.float32),
+            device=dev)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.as_tensor(r.normal(size=(
+            b, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32),
+            device=dev)
+    return batch
+
+
+def kernel_layers(cfg) -> int:
+    """Layers whose decode takes the kernel branch (GQA, no ring, no
+    window), as ``models/attention.attention_decode`` decides."""
+    takes = (cfg.use_decode_kernel and not cfg.use_mla
+             and cfg.family not in ("ssm", "hybrid")
+             and cfg.attn_kind != "sliding")
+    return cfg.n_layers if takes else 0
+
+
+def serve_family(torch, name, cfg, batch, capacity):
+    """The main path of one family: Engine.generate, one warm-up and
+    FAM_CALLS timed calls, launches counted from 0 around them."""
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    from repro_torch.models import Model
+    from repro_torch.serving import Engine, ServeConfig
+    base = torch.cuda.memory_allocated()       # what earlier phases hold
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    eng = Engine(cfg, params, ServeConfig(max_new_tokens=FAM_NEW),
+                 capacity=capacity)
+    b = batch["tokens"].shape[0]
+    per_call = kernel_layers(cfg) * (FAM_NEW - 1)
+    da.decode_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    results, walls = [], []
+    for _ in range(1 + FAM_CALLS):
+        before = da.decode_attention.launches
+        t0 = time.perf_counter()
+        res = eng.generate(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        fail_unless(da.decode_attention.launches - before == per_call,
+                    f"{name}: decode_attention launched "
+                    f"{da.decode_attention.launches - before} times in a "
+                    f"call, not {per_call}")
+        fail_unless(res.tokens.shape == (b, FAM_NEW)
+                    and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all(),
+                    f"{name}: generated tokens of the wrong shape or range")
+        results.append(res)
+    launches = da.decode_attention.launches
+    steps = np.concatenate([r.step_ms for r in results[1:]])
+    stats = {"arch": cfg.arch_id, "n_layers": cfg.n_layers,
+             "params": n_params, "dtype": cfg.dtype, "batch": b,
+             "prompt": int(batch["tokens"].shape[1]),
+             "prefix": model.n_prefix(), "new_tokens": FAM_NEW,
+             "capacity": capacity, "init_s": init_s,
+             "prefill_ms": [r.prefill_ms for r in results[1:]],
+             "decode_step_p50_ms": float(np.percentile(steps, 50)),
+             "decode_step_p99_ms": float(np.percentile(steps, 99)),
+             "tokens_per_s": [b * FAM_NEW / w for w in walls[1:]],
+             # the model's own peak: weights, cache and activations
+             "peak_device_memory_gb": (torch.cuda.max_memory_allocated()
+                                       - base) / 1e9,
+             "held_before_gb": base / 1e9,
+             "deterministic": all(np.array_equal(r.tokens, results[0].tokens)
+                                  for r in results),
+             "launches": {"decode_attention": launches}}
+    return model, params, results[-1], stats
+
+
+def kernel_vs_einsum(torch, name, model, params, batch, res, capacity):
+    """Teacher-forced on the kernel path's tokens, the einsum path's bf16
+    logits within LM_BF16_ULPS bf16 steps of the largest logit (phase 5's
+    tolerance); with MoE, on each row's steps before its first routing
+    difference (counted).  Returns the report and the kernel path's log."""
+    from repro_torch.models import Model
+    cfg = model.cfg
+    tokens = torch.as_tensor(res.tokens, device="cuda").long()
+    moe = cfg.family == "moe"
+    with RoutingLog(torch, moe) as klog:
+        lk = teacher_forced(torch, model, params, batch, tokens, capacity)
+    with RoutingLog(torch, moe) as plog:
+        lp = teacher_forced(torch, Model(cfg.with_(use_decode_kernel=False)),
+                            params, batch, tokens, capacity)
+    lk, lp = lk[..., :cfg.vocab], lp[..., :cfg.vocab]
+    fail_unless(bool(torch.isfinite(lk).all() and torch.isfinite(lp).all()),
+                f"{name}: non-finite logits")
+    fail_unless(torch.equal(first_argmax(torch, lk), tokens),
+                f"{name}: teacher-forced kernel-path logits do not reproduce "
+                "the tokens Engine.generate picked")
+    diff = (lk - lp).abs().amax(dim=-1).cpu().numpy()          # (B, T)
+    held = np.ones(diff.shape, bool)
+    if moe:
+        p0 = model.n_prefix() + int(batch["tokens"].shape[1])
+        held = held_steps(first_routing_diff(klog.by_layer(cfg.n_layers),
+                                             plog.by_layer(cfg.n_layers)),
+                          p0, diff.shape[1])
+    tol = LM_BF16_ULPS * bf16_ulp(float(lp.abs().max()))
+    worst = float(diff[held].max())
+    fail_unless(worst <= tol, f"{name}: bf16 logits of the kernel path differ "
+                f"from the einsum path by {worst} > {tol}")
+    out = {"max_abs_diff": worst, "tolerance": tol,
+           "max_abs_logit": float(lp.abs().max()),
+           "steps": int(diff.size), "steps_held": int(held.sum()),
+           "max_abs_diff_past_routing_difference":
+               float(diff[~held].max()) if (~held).any() else None,
+           "greedy_agree": float((first_argmax(torch, lp) == tokens)
+                                 .float().mean())}
+    print(f"{name}: bf16 logits, kernel vs einsum path (teacher-forced): max "
+          f"abs diff {worst:.4g} (tolerance {tol:.4g}) on {out['steps_held']}"
+          f" of {out['steps']} steps" + (
+              f" (the rest follow a routing difference; there the max is "
+              f"{out['max_abs_diff_past_routing_difference']:.4g})"
+              if (~held).any() else "")
+          + f", greedy picks agree on {out['greedy_agree']:.4f}")
+    return out, klog
+
+
+def forward_check(torch, name, cfg, prompt, steps, tol, seed):
+    """f32, fresh weights: prefill of ``prompt`` tokens and ``steps`` - 1
+    teacher-forced decode steps against the forward over ``prompt + steps``
+    tokens, logits within ``tol``; with MoE, on each row's steps before its
+    first routing difference (counted).  Batch FAM_F32_BATCH."""
+    from repro_torch.models import Model
+    model = Model(cfg)
+    params = model.init(seed)
+    r = np.random.default_rng(seed)
+    toks = torch.as_tensor(r.integers(0, cfg.vocab, (FAM_F32_BATCH,
+                                                     prompt + steps)),
+                           device="cuda")
+    moe = cfg.family == "moe"
+    with RoutingLog(torch, moe) as flog:
+        full = model.forward(params, {"tokens": toks})[0][
+            :, prompt - 1:prompt - 1 + steps, :cfg.vocab]
+    with RoutingLog(torch, moe) as dlog:
+        tf = teacher_forced(torch, model, params,
+                            {"tokens": toks[:, :prompt]}, toks[:, prompt:],
+                            prompt + steps + 8)[..., :cfg.vocab]
+    diff = (tf - full).abs().amax(dim=-1).cpu().numpy()       # (B, steps)
+    held = np.ones(diff.shape, bool)
+    if moe:
+        held = held_steps(first_routing_diff(flog.by_layer(cfg.n_layers),
+                                             dlog.by_layer(cfg.n_layers)),
+                          prompt, steps)
+    worst = float(diff[held].max())
+    fail_unless(bool(torch.isfinite(tf).all()) and worst <= tol,
+                f"{name}: f32 prefill + decode differ from the forward by "
+                f"{worst} > {tol}")
+    out = {"layers": cfg.n_layers, "batch": FAM_F32_BATCH, "prompt": prompt,
+           "steps": steps, "max_abs_diff": worst, "tolerance": tol,
+           "max_abs_logit": float(full.abs().max()),
+           "steps_held": int(held.sum()), "steps_total": int(held.size)}
+    print(f"{name}: f32 prefill {prompt} + {steps - 1} decode steps vs "
+          f"forward over {prompt + steps} ({cfg.n_layers} layers, batch "
+          f"{FAM_F32_BATCH}, capacity factor {cfg.capacity_factor}): max abs "
+          f"diff {worst:.3g} (tolerance {tol:.3g}, max |logit| "
+          f"{out['max_abs_logit']:.3g}) on {out['steps_held']} of "
+          f"{out['steps_total']} steps")
+    del model, params, full, tf
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_kernel_row(torch, name, model, params, batch, capacity,
+                      launches):
+    """decode_attention at this family's serving layout, on layer 0's live
+    cache (K/V past the prompt made random), held against its plain version
+    and timed beside it, SDPA and the bound (``decode_row``)."""
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    _, cache = model.prefill(params, batch, capacity)
+    p0 = int(cache["len"])
+    b = batch["tokens"].shape[0]
+    kc, vc = cache["k"][0], cache["v"][0]
+    kc[:, p0:] = torch.randn_like(kc[:, p0:])
+    vc[:, p0:] = torch.randn_like(vc[:, p0:])
+    q = torch.randn((b, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.hd), generator=torch.Generator(dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    length = torch.tensor(p0 + FAM_NEW - 2, dtype=torch.int32, device=dev)
+    row, eager = decode_row(torch, f"decode_attention@{name}", q, kc, vc,
+                            length, launches, 50, graphed=True)
+    del cache, kc, vc
+    return row, eager
+
+
+def print_family(name, st, extra=""):
+    print(f"{name}: {st['arch']} ({st['n_layers']} layers, {st['params']} "
+          f"params, {st['dtype']}), batch {st['batch']}, prompt "
+          f"{st['prompt']}"
+          + (f" + {st['prefix']} image tokens" if st["prefix"] else "")
+          + f", {FAM_NEW} new tokens, capacity {st['capacity']}: prefill "
+          f"{np.median(st['prefill_ms']):.2f} ms, decode step p50 "
+          f"{st['decode_step_p50_ms']:.3f} ms p99 "
+          f"{st['decode_step_p99_ms']:.3f} ms, "
+          f"{np.median(st['tokens_per_s']):.1f} tokens/s, peak device "
+          f"memory {st['peak_device_memory_gb']:.2f} GB (above the "
+          f"{st['held_before_gb']:.2f} GB held before), decode_attention "
+          f"launches {st['launches']['decode_attention']}{extra}")
+
+
+def phase_families(torch, report):
+    """Phase 10: the MoE, MLA, SSM, RG-LRU hybrid, encoder-decoder and VLM
+    families at their published widths, each through Engine.generate."""
+    from repro_torch.configs import get_config
+    fams: dict = {}
+    rows = []
+
+    def done(key):
+        torch.cuda.empty_cache()
+        fams[key]["seconds"] = time.perf_counter() - t_fam
+
+    def with_kernel(key, name, model, params, batch, res, st, capacity):
+        """The kernel path's checks and its row; returns the share."""
+        fams[key]["bf16_vs_einsum"], log = kernel_vs_einsum(
+            torch, name, model, params, batch, res, capacity)
+        row, eager = family_kernel_row(
+            torch, name, model, params, batch, capacity,
+            st["launches"]["decode_attention"])
+        rows.append(row)
+        share = model.cfg.n_layers * row["ms"] / st["decode_step_p50_ms"]
+        share_eager = model.cfg.n_layers * eager / st["decode_step_p50_ms"]
+        st["decode_attention_share_of_step"] = share
+        st["decode_attention_eager_share_of_step"] = share_eager
+        return log, (f", decode_attention {share:.1%} of a step in device "
+                     f"time ({share_eager:.1%} as eager calls)")
+
+    # --- 10a olmoe-1b-7b, all 16 layers
+    t_fam = time.perf_counter()
+    cfg = get_config("olmoe-1b-7b").with_(use_decode_kernel=True)
+    batch = family_batch(torch, cfg, FAM_BATCH, FAM_PROMPT, 10)
+    cap = FAM_PROMPT + FAM_NEW + 8
+    model, params, res, st = serve_family(torch, "10a", cfg, batch, cap)
+    fams["olmoe"] = st
+    log, extra = with_kernel("olmoe", "olmoe-1b-7b", model, params, batch,
+                             res, st, cap)
+    drops = log.dropped(cfg.n_layers, skip=1)
+    st["decode_capacity"] = int(max(1, cfg.capacity_factor * FAM_BATCH
+                                    * cfg.moe_top_k / cfg.n_experts))
+    st["dropped_pairs_per_decode_step"] = drops.tolist()
+    print_family("10a", st, extra + f"; decode capacity "
+                 f"{st['decode_capacity']} per expert: dropped pairs a decode "
+                 f"step (all layers) mean {drops.mean():.1f} of "
+                 f"{cfg.n_layers * FAM_BATCH * cfg.moe_top_k}")
+    del model, params
+    torch.cuda.empty_cache()
+    st["f32_forward"] = forward_check(
+        torch, "10a", cfg.with_(dtype="float32",
+                                capacity_factor=OLMOE_DROPLESS),
+        FAM_PROMPT, 8, F32_FWD_TOL, 11)
+    done("olmoe")
+
+    # --- 10b deepseek-v2-236b, depth cut to DEEPSEEK_LAYERS
+    t_fam = time.perf_counter()
+    full_cfg = get_config("deepseek-v2-236b")
+    cfg = full_cfg.with_(n_layers=DEEPSEEK_LAYERS, use_decode_kernel=True)
+    batch = family_batch(torch, cfg, FAM_BATCH, FAM_PROMPT, 12)
+    model, params, res, st = serve_family(torch, "10b", cfg, batch, cap)
+    fams["deepseek"] = st
+    with RoutingLog(torch, True) as log:
+        teacher_forced(torch, model, params, batch,
+                       torch.as_tensor(res.tokens, device="cuda").long(),
+                       cap)
+    drops = log.dropped(cfg.n_layers, skip=1)
+    _, cache = model.prefill(params, batch, cap)
+    latent = sum(cache[k].numel() * cache[k].element_size()
+                 for k in ("c_kv", "k_rope"))
+    per_head = (cfg.n_layers * FAM_BATCH * cap * cfg.n_heads
+                * (cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim) * 2)
+    st.update(latent_cache_bytes=latent, per_head_kv_bytes=per_head,
+              dropped_pairs_per_decode_step=drops.tolist(),
+              full_depth_param_gb=full_cfg.param_count() * 2 / 1e9)
+    print_family("10b", st, f"; latent cache {latent} bytes against "
+                 f"{per_head} for a per-head K/V cache "
+                 f"({per_head / latent:.1f}x); dropped pairs a decode step "
+                 f"(all layers) mean {drops.mean():.1f} of "
+                 f"{cfg.n_layers * FAM_BATCH * cfg.moe_top_k}")
+    del model, params, cache
+    torch.cuda.empty_cache()
+    st["f32_forward"] = forward_check(
+        torch, "10b", cfg.with_(dtype="float32", n_layers=DEEPSEEK_F32_LAYERS,
+                                capacity_factor=DEEPSEEK_DROPLESS),
+        FAM_PROMPT, 8, F32_FWD_TOL, 13)
+    done("deepseek")
+
+    # --- 10c mamba2-780m, all 48 layers
+    t_fam = time.perf_counter()
+    cfg = get_config("mamba2-780m").with_(use_decode_kernel=True)
+    batch = family_batch(torch, cfg, FAM_BATCH, FAM_PROMPT, 14)
+    model, params, res, st = serve_family(torch, "10c", cfg, batch, cap)
+    fams["mamba2"] = st
+    print_family("10c", st)
+    del model, params
+    torch.cuda.empty_cache()
+    cfg32 = cfg.with_(dtype="float32")
+    # 4 chunks in the prefill, 5 in the forward; then the single-chunk
+    # branch: a prefill of 1,000 against a forward of 4 chunks
+    st["f32_forward"] = [
+        forward_check(torch, "10c", cfg32, FAM_PROMPT, cfg.ssm_chunk,
+                      SSD_FWD_TOL, 15),
+        forward_check(torch, "10c", cfg32, SSD_SINGLE,
+                      FAM_PROMPT - SSD_SINGLE, SSD_FWD_TOL, 16)]
+    done("mamba2")
+
+    # --- 10d recurrentgemma-9b, all 38 layers (12 groups + 2 tail)
+    t_fam = time.perf_counter()
+    cfg = get_config("recurrentgemma-9b").with_(use_decode_kernel=True)
+    batch = family_batch(torch, cfg, RG_BATCH, RG_PROMPT, 17)
+    rg_cap = RG_PROMPT + FAM_NEW + 8
+    model, params, res, st = serve_family(torch, "10d", cfg, batch, rg_cap)
+    fams["recurrentgemma"] = st
+    print_family("10d", st, f"; attention ring of "
+                 f"{min(rg_cap, cfg.local_window)} slots")
+    del model, params
+    torch.cuda.empty_cache()
+    st["f32_forward"] = forward_check(torch, "10d",
+                                      cfg.with_(dtype="float32"), RG_PROMPT,
+                                      8, F32_FWD_TOL, 18)
+    done("recurrentgemma")
+
+    # --- 10e whisper-tiny
+    t_fam = time.perf_counter()
+    cfg = get_config("whisper-tiny").with_(use_decode_kernel=True)
+    batch = family_batch(torch, cfg, FAM_BATCH, WHISPER_PROMPT, 19)
+    w_cap = WHISPER_PROMPT + FAM_NEW + 8
+    model, params, res, st = serve_family(torch, "10e", cfg, batch, w_cap)
+    fams["whisper"] = st
+    _, extra = with_kernel("whisper", "whisper-tiny", model, params, batch,
+                           res, st, w_cap)
+    print_family("10e", st, extra + f"; encoder frames {WHISPER_FRAMES}")
+    del model, params
+    done("whisper")
+
+    # --- 10f internvl2-26b, whole
+    t_fam = time.perf_counter()
+    cfg = get_config("internvl2-26b").with_(use_decode_kernel=True)
+    batch = family_batch(torch, cfg, FAM_BATCH, VLM_PROMPT, 20)
+    v_cap = cfg.n_image_tokens + VLM_PROMPT + FAM_NEW + 8
+    model, params, res, st = serve_family(torch, "10f", cfg, batch, v_cap)
+    fams["internvl2"] = st
+    _, extra = with_kernel("internvl2", "internvl2-26b", model, params,
+                           batch, res, st, v_cap)
+    print_family("10f", st, extra)
+    del model, params
+    done("internvl2")
+
+    report["families"] = fams
+    print("families: seconds " + ", ".join(
+        f"{k} {v['seconds']:.1f}" for k, v in fams.items()))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3251,6 +3743,10 @@ def main() -> int:
     # ------------------------------------------- 9. multi-host serving
     kernels += phase_multihost(torch, report, svc_bucket)
     lap("9")
+
+    # ------------------------------------------ 10. the other LM families
+    kernels += phase_families(torch, report)
+    lap("10")
     report["phase_s"] = phase_s
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))

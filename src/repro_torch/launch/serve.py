@@ -729,13 +729,15 @@ def main():
 
 
 def serve_lm(args):
-    """The LM mode: seeded random weights, one ``Engine.generate`` call.
-    The port serves the dense family, whose decode step attends through
-    the ``decode_attention`` kernel (``use_decode_kernel``; its plain
-    version on the CPU); the model raises, naming ROADMAP item 8, for the
-    families it does not serve yet (MoE, MLA, SSM, hybrid, encdec, VLM) —
-    so the reference's frames / image-embedding inputs have no caller
-    here."""
+    """The LM mode: seeded random weights, one ``Engine.generate`` call, for
+    every family of the registry.  The inputs are the reference's, drawn
+    from one numpy rng seeded 0: prompt tokens, then for ``encdec`` frame
+    embeddings (4 frames a prompt token) and for ``vlm`` image embeddings.
+    ``use_decode_kernel`` is set, so the decode step attends through the
+    ``decode_attention`` kernel wherever the reference's decode takes the
+    kernel branch (GQA without ring or window: the dense, MoE, encdec and
+    vlm families; its plain version on the CPU).  The cache holds the image
+    prefix too: capacity is prefix + prompt + new tokens + 8."""
     from repro_torch.models.model import Model
     from repro_torch.serving import Engine, ServeConfig
 
@@ -752,11 +754,20 @@ def serve_lm(args):
         use_gam_head=args.gam,
         gam_threshold=args.gam_threshold,
         gam_min_overlap=args.gam_min_overlap,
-    ), capacity=args.prompt_len + args.new_tokens + 8, device=args.device)
+    ), capacity=model.n_prefix() + args.prompt_len + args.new_tokens + 8,
+        device=args.device)
 
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab,
                                     (args.batch, args.prompt_len))}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(
+            args.batch, args.prompt_len * 4, cfg.d_frontend)).astype(
+                np.float32)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.normal(size=(
+            args.batch, cfg.n_image_tokens, cfg.d_frontend)).astype(
+                np.float32)
 
     t0 = time.monotonic()
     res = eng.generate(batch)

@@ -1,5 +1,6 @@
-"""The LM substrate of the port: the dense family (GQA attention + SwiGLU),
-its layers, and weight conversion from the reference's parameter tree."""
+"""The LM substrate of the port: every family of the reference (dense, MoE,
+MLA, SSM, the RG-LRU hybrid, encoder-decoder, VLM), its layers and mixers,
+and weight conversion from the reference's parameter tree."""
 from repro_torch.models.model import Model
 
 __all__ = ["Model"]

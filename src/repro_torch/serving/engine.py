@@ -1,9 +1,14 @@
 """Batched serving engine: prefill + decode loop over a KV cache, greedy or
 temperature sampling, and the GAM-accelerated LM head.
 
-Counterpart of ``repro.serving.engine``.  With ``use_gam_head=True`` the
-decode step stops at the final hidden state (no vocab matmul) and the GAM
-head scores only the candidate vocabulary rows.
+Counterpart of ``repro.serving.engine``, for every family of the model:
+the prompt batch carries the family's extras (``frames`` for encdec,
+``image_embeds`` for vlm, whose image tokens take cache slots in front of
+the prompt: ``Model.prefill`` raises when prefix + prompt exceed
+``capacity``), and the cache stays on the model's device between steps.
+With ``use_gam_head=True`` the decode step stops at the final hidden state
+(no vocab matmul) and the GAM head scores only the candidate vocabulary
+rows.
 
 Greedy picks break ties by the LOWEST vocab id, as ``lax.top_k`` + argmax
 do in the reference: the top-kappa is taken under (score desc, id asc) by
@@ -78,7 +83,8 @@ class Engine:
         return torch.gather(ids, 1, col)
 
     def generate(self, batch: dict, seed: int = 0) -> GenerationResult:
-        """batch: dict with 'tokens' (B, S_prompt) prompt ids."""
+        """batch: dict with 'tokens' (B, S_prompt) prompt ids and the
+        family's extras ('frames', 'image_embeds')."""
         sc = self.serve_cfg
         gen = None
         if sc.temperature > 0.0:

@@ -483,6 +483,10 @@ DECODE_SHAPES = [
     (2, 4, 2, 128, 257), (1, 2, 16, 64, 1024), (8, 4, 8, 64, 1064),
     (4, 4, 8, 64, 32768), (2, 3, 6, 100, 333), (2, 1, 16, 256, 520),
     (1, 1, 48, 256, 130), (2, 2, 3, 8, 7),
+    # the other families' serving layouts (batch 8): olmoe-1b-7b (hd 128,
+    # G 1, capacity 1,064), whisper-tiny's decoder (hd 64, G 1, capacity
+    # 44) and internvl2-26b (hd 128, G 6, 256 image tokens + 808)
+    (8, 16, 1, 128, 1064), (8, 6, 1, 64, 44), (8, 8, 6, 128, 1064),
 ]
 
 
@@ -578,6 +582,40 @@ def test_decode_kernel_model_path_equals_einsum_path(dev):
     _, cp = plain.prefill(params, {"tokens": tokens}, 40)
     _, ck = kern.prefill(params, {"tokens": tokens}, 40)
     tok = tokens[:, :1]
+    before = da.decode_attention.launches
+    for _ in range(5):
+        lp, cp = plain.decode_step(params, cp, tok)
+        lk, ck = kern.decode_step(params, ck, tok)
+        torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
+        tok = lp[:, 0].argmax(-1, keepdim=True)
+    assert da.decode_attention.launches == before + 5 * cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "whisper-tiny",
+                                  "internvl2-26b"])
+def test_decode_kernel_family_path_equals_einsum_path(dev, arch):
+    """The reduced MoE, encoder-decoder and VLM models on the card: the
+    decode steps through the kernel equal the einsum path within 1e-4 (f32;
+    the reduced MoE config is dropless), one launch per layer and step."""
+    from repro_torch.configs import get_reduced_config
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    from repro_torch.models import Model
+    cfg = get_reduced_config(arch).with_(vocab=300)
+    plain, kern = Model(cfg), Model(cfg.with_(use_decode_kernel=True))
+    params = plain.init(0)
+    r = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(r.integers(0, 300, (4, 12))).to(dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(r.normal(
+            size=(4, 48, cfg.d_frontend)).astype(np.float32)).to(dev)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(r.normal(
+            size=(4, cfg.n_image_tokens, cfg.d_frontend)).astype(
+                np.float32)).to(dev)
+    capacity = 24 + plain.n_prefix()
+    _, cp = plain.prefill(params, batch, capacity)
+    _, ck = kern.prefill(params, batch, capacity)
+    tok = batch["tokens"][:, :1]
     before = da.decode_attention.launches
     for _ in range(5):
         lp, cp = plain.decode_step(params, cp, tok)

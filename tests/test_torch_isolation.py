@@ -39,6 +39,8 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.obs, repro_torch.online, repro_torch.data\n"
             "import repro_torch.factorization.convert, repro_torch.training\n"
             "import repro_torch.configs.gam_mf\n"
+            "import repro_torch.models.moe, repro_torch.models.ssm\n"
+            "import repro_torch.models.rglru, repro_torch.models.model\n"
             "import repro_torch.retriever.multihost, repro_torch.launch\n"
             "import repro_torch.launch.procs, repro_torch.launch.serve\n"
             "import importlib.util as u, pathlib\n"

@@ -44,12 +44,19 @@ def test_serve_launcher_gam(monkeypatch, capsys):
     assert "vocab rows scored/step" in out
 
 
-def test_serve_launcher_refuses_families_it_does_not_serve(monkeypatch):
-    monkeypatch.setattr(sys, "argv", [
-        "serve", "--arch", "olmoe-1b-7b", "--reduced", "--vocab", "64",
-        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve.main()
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b",
+                                  "mamba2-780m", "recurrentgemma-9b",
+                                  "whisper-tiny", "internvl2-26b"])
+def test_serve_launcher_serves_every_family(monkeypatch, capsys, arch):
+    """The LM mode at ``--reduced`` for each family beyond the dense one:
+    the reference's launcher inputs (frames, image embeddings), greedy
+    tokens of the right shape, and the decode kernel's launch count (0: on
+    the CPU the plain version runs)."""
+    out = _main(monkeypatch, capsys, "--arch", arch, "--reduced", "--batch",
+                "2", "--prompt-len", "6", "--new-tokens", "3", "--vocab",
+                "64")
+    assert f"arch={arch}" in out and "2x3 tokens" in out
+    assert "{'decode_attention': 0}" in out
 
 
 def test_serve_help_pins_the_flag_surface(monkeypatch, capsys):

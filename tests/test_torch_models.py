@@ -208,13 +208,6 @@ def test_bf16_decode_matches_reference():
         tok = np.asarray(jnp.argmax(jl[:, 0], -1))[:, None].astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m",
-                                  "deepseek-v2-236b", "whisper-tiny"])
-def test_other_families_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(reduced(get_config(arch)), device="cpu")
-
-
 def test_model_without_device_never_runs_on_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
