@@ -242,6 +242,42 @@ Phases, each of which fails the run if it fails:
    share of a step, dropped (token, slot) pairs a decode step (10a, 10b:
    capacity 1 at batch 8) and 10b's latent-cache bytes against a per-head
    K/V cache are printed.
+11. LM training (no kernel of its own: the reference's training forward
+   reaches no Pallas call; autograd runs through the model's plain torch).
+   11a: tinyllama-1.1b at its published widths in bf16, seeded weights,
+   trains through ``launch.steps.make_train_step`` on
+   ``TokenPipeline(vocab=32,000, seed=0)`` for 20 steps (AdamW lr 1e-3,
+   warmup 4) at the largest of batch 8 x seq 1,024, 4 x 1,024 and 8 x 512
+   that fits (printed): every loss finite, the mean of the last 5 below
+   the first 5's, the held-out nll (4 batches, seed 10,000,
+   ``eval_batches``) falling.  Params and the AdamW state (bf16, f32,
+   int32) go through ``save_checkpoint`` -> ``restore_checkpoint`` bit for
+   bit, and the restored params' eval equals the live params'.
+   ``Engine.generate`` from the restored params (``use_decode_kernel=True``,
+   batch 8, prompts of 64, 8 new tokens) must launch ``decode_attention``
+   22 x 7 times (counted from 0 around it) and give the live params'
+   tokens.  ``make_gam_serve_step`` beside ``make_serve_step`` for 8 steps:
+   each GAM pick is the f64 argmax over its own candidate set but for
+   counted near-ties; the agreement with the exact head is printed.
+   ``decode_attention`` is held to its plain version and timed at this
+   layout (the ``decode_attention@trained_checkpoint`` row).  Step
+   p50/p99 (CUDA events around each of the first 19 steps), forward +
+   backward against the AdamW update, tokens/s, peak memory, checkpoint
+   save/restore seconds and the 20th step under ``torch.profiler`` (device
+   activities, busy share, top kernels) are printed with the card's name
+   and power limit.  11b: one f32 step of tinyllama at 2 layers, d 256 on
+   the card and on the CPU from the same weights: loss within 1e-5
+   relative, every gradient leaf within 1e-4 x its largest |g|, params
+   within 1e-5 but where AdamW's update is eps-dominated (counted).  11c:
+   olmoe-1b-7b at its published widths cut to 2 of 16 layers, bf16, batch
+   8 x 512, 3 steps (finite loss and gradients, aux > 0, dropped pairs
+   printed), and mamba2-780m, recurrentgemma-9b, whisper-tiny and
+   internvl2-26b one step each at their reduced configs (finite loss,
+   every gradient leaf finite).  11d: ``python -m repro_torch.launch.train
+   --arch olmo-1b --reduced --steps 12 --batch 2 --seq 32 --vocab 128`` and
+   ``examples/{train_lm,quickstart,serve_stream,serve_gam}_torch.py``, each
+   a process on the card, started together: each must exit 0 with its own
+   assertions holding.
 Then the ``kernels`` JSON line (every kernel, at each shape above), the
 card's name and power limit, and the result line.
 
@@ -272,6 +308,15 @@ WIDE_POOL = 256                # a pool past the kernel's shared-memory lists
 ULP = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM data sheet, outside the tensor cores
+
+
+def card_name_and_limit() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``'s
+    first line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "not available"
 
 
 def fail_unless(cond, what: str) -> None:
@@ -2581,34 +2626,45 @@ def multihost_worker(rank: int, coordinator: str, bucket: int) -> int:
     return 0
 
 
-def run_launcher(args: list, what: str) -> tuple[str, float]:
-    """``python -m repro_torch.launch.serve <args>`` from the checkout, as
-    the leader of a new process group, so a launcher past its deadline is
-    killed with the workers it spawned.  Returns (stdout, seconds); fails
-    unless it exits 0."""
+def run_python(args: list, what: str, timeout: float):
+    """Start ``python <args>`` from the checkout as the leader of a new
+    process group (so a run past its deadline is killed with whatever it
+    spawned).  Returns a function that waits for it and returns (stdout,
+    seconds), failing unless it exits 0."""
     import os
     import signal
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    p = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve",
-                          *args], stdout=subprocess.PIPE,
+    p = subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
                          stderr=subprocess.PIPE, text=True, env=env,
                          cwd=ROOT, start_new_session=True)
-    try:
-        stdout, stderr = p.communicate(timeout=MH_LAUNCHER_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(p.pid, signal.SIGKILL)
-        p.communicate()
-        raise SystemExit(f"chip_smoke: FAILED: {what}: the launcher ran "
-                         f"past {MH_LAUNCHER_TIMEOUT} s")
-    seconds = time.perf_counter() - t0
-    print(f"launcher {what} ({seconds:.1f} s, exit {p.returncode}): "
-          f"python -m repro_torch.launch.serve {' '.join(args)}")
-    for line in stdout.splitlines():
-        print(f"  | {line}")
-    fail_unless(p.returncode == 0, f"{what}: the launcher exited "
-                f"{p.returncode}: {stderr[-3000:]}")
-    return stdout, seconds
+
+    def wait():
+        try:
+            stdout, stderr = p.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+            raise SystemExit(f"chip_smoke: FAILED: {what}: ran past "
+                             f"{timeout} s")
+        seconds = time.perf_counter() - t0
+        print(f"{what} (done within {seconds:.1f} s of its start, exit "
+              f"{p.returncode}): python {' '.join(args)}")
+        for line in stdout.splitlines():
+            print(f"  | {line}")
+        fail_unless(p.returncode == 0, f"{what}: exited {p.returncode}: "
+                    f"{stderr[-3000:]}")
+        return stdout, seconds
+
+    return wait
+
+
+def run_launcher(args: list, what: str) -> tuple[str, float]:
+    """``python -m repro_torch.launch.serve <args>`` (``run_python``).
+    Returns (stdout, seconds); fails unless it exits 0."""
+    return run_python(["-m", "repro_torch.launch.serve", *args],
+                      f"launcher {what}", MH_LAUNCHER_TIMEOUT)()
 
 
 def launches_in(stdout: str, prefix: str) -> dict:
@@ -3201,6 +3257,569 @@ def phase_families(torch, report):
     return rows
 
 
+# ---------------------------------------------------- 11. LM training
+
+TRAIN_SIZES = ((8, 1024), (4, 1024), (8, 512))   # (batch, seq), largest first
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 20, 1e-3, 4
+TRAIN_EVAL = 4                     # held-out batches, pipeline seed 10,000
+TRAIN_PROMPT, TRAIN_NEW = 64, 8    # serving from the restored checkpoint
+TRAIN_GAM_STEPS = 8                # GAM serve steps beside the exact head
+TRAIN_GAM = dict(coarse_k=128, budget=16_384)   # make_gam_serve_step's
+PARITY_LM = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=1,
+                 head_dim=64, d_ff=704, dtype="float32")
+PARITY_BATCH, PARITY_SEQ = 4, 128
+# card against CPU at f32: the loss within 1e-5 relative; each gradient
+# leaf within 1e-4 x the CPU leaf's largest |g| (cuBLAS and the CPU's BLAS
+# sum in other orders; the reference against the port on the CPU stays
+# within 3.5e-6 x, tests/test_torch_training.py); after a step, params
+# within 1e-5 except where AdamW's denominator is eps-dominated
+PARITY_LOSS_TOL, PARITY_GRAD_TOL, PARITY_PARAM_TOL = 1e-5, 1e-4, 1e-5
+EPS_DOMINATED = 100.0              # sqrt(v_hat) below this many AdamW eps
+OLMOE_TRAIN_LAYERS, OLMOE_TRAIN_STEPS = 2, 3
+OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ = 8, 512
+FAMILY_TRAIN = ("mamba2-780m", "recurrentgemma-9b", "whisper-tiny",
+                "internvl2-26b")
+ENTRY_TIMEOUT = 300                # s: each 11d subprocess
+
+
+def flat_paths(tree, prefix="") -> dict:
+    """path -> tensor of a nested parameter dict."""
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items()
+                for p, v in flat_paths(sub, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def grads_of(torch, model, params, batch):
+    """(loss, metrics, {path: grad}) of ``Model.loss`` on ``batch``."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    flat = flat_paths(live)
+    loss, met = model.loss(live, batch)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return (loss.detach(), {k: v.detach() for k, v in met.items()},
+            dict(zip(flat, grads)))
+
+
+def all_finite(torch, grads: dict) -> bool:
+    return all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+def tensor_bits_equal(torch, a, b) -> bool:
+    """Same dtype, shape and bits (bf16 and f32 viewed as integers)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if a.is_floating_point():
+        a, b = a.view(ints[a.element_size()]), b.view(ints[b.element_size()])
+    return torch.equal(a, b)
+
+
+def profile_step(torch, fn) -> tuple:
+    """One call of ``fn`` under torch.profiler -> (its result, stats):
+    device activities (kernel launches and copies), device busy time and
+    the host wall, and the top device kernels; ``None`` values where the
+    profiler saw no device time (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in events) / 1e3
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total",
+                                                0.0))[:6]
+    if busy_ms == 0:
+        return out, {"device_activities": None, "busy_ms": None,
+                     "wall_ms": wall_ms, "busy_share": None, "top": []}
+    return out, {"device_activities": sum(e.count for e in events),
+                 "busy_ms": busy_ms, "wall_ms": wall_ms,
+                 "busy_share": busy_ms / wall_ms,
+                 "top": [(e.key[:60], getattr(e, "self_device_time_total",
+                                              0.0) / 1e3, e.count)
+                         for e in top]}
+
+
+def train_size(torch, model, step_fn, cfg):
+    """The largest (batch, seq) of TRAIN_SIZES whose train step fits the
+    card (one step from a fresh init each; an out-of-memory step moves to
+    the next size)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import build_batch
+    from repro_torch.training import adamw_init
+    for b, s in TRAIN_SIZES:
+        params = model.init(0)
+        opt = adamw_init(params)
+        batch = build_batch(cfg, TokenPipeline(
+            vocab=cfg.vocab, seq_len=s, batch=b, seed=0).batch_at(0),
+            np.random.default_rng(0))
+        try:
+            step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            return b, s
+        except torch.cuda.OutOfMemoryError:
+            print(f"11a: batch {b} x seq {s} does not fit the card")
+        finally:
+            del params, opt, batch
+            torch.cuda.empty_cache()
+    raise SystemExit("chip_smoke: FAILED: 11a: no training size fits")
+
+
+def gam_vs_exact(torch, model, params, prompts, capacity, what):
+    """``make_gam_serve_step`` beside ``make_serve_step``, teacher-forced on
+    the exact head's picks for TRAIN_GAM_STEPS steps from one cache.  Every
+    GAM pick must be the exact argmax (f64) over the step's own candidate
+    set (recomputed with the step's f32 coarse stage), but where the two
+    best f64 logits there lie within the f32 dot product's rounding bound
+    (counted).  Returns the agreement with the exact head and the counts."""
+    from repro_torch.launch import steps as steps_mod
+    cfg = model.cfg
+    patterns = unembed_patterns(torch, model, params)            # (d, V)
+    nnz = patterns.float().abs().sum(dim=0)
+    gam = {"patterns": patterns,
+           "inv_sqrt_nnz": 1.0 / torch.sqrt(torch.clamp(nnz, min=1.0))}
+    coarse_k, budget = TRAIN_GAM["coarse_k"], TRAIN_GAM["budget"]
+    serve = steps_mod.make_serve_step(model)
+    gam_step = steps_mod.make_gam_serve_step(model, **TRAIN_GAM)
+    embed = (params["embed"] if cfg.tie_embeddings
+             else params["lm_head"].T)
+    logits, cache = model.prefill(params, {"tokens": prompts}, capacity)
+    tok = torch.argmax(logits, dim=-1).int()
+    same = ties = agree = n = 0
+    gam_ms, exact_ms = [], []
+    for _ in range(TRAIN_GAM_STEPS):
+        clone = {k: v.clone() for k, v in cache.items()}
+        hidden, _ = model.decode_step(
+            params, {k: v.clone() for k, v in cache.items()}, tok,
+            return_hidden=True)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        e[0].record()
+        picked, _ = gam_step(params, gam, clone, tok)
+        e[1].record()
+        e[2].record()
+        nxt, cache = serve(params, cache, tok)
+        e[3].record()
+        torch.cuda.synchronize()
+        gam_ms.append(e[0].elapsed_time(e[1]))
+        exact_ms.append(e[2].elapsed_time(e[3]))
+        # the step's candidate set, by its own f32 coarse stage
+        h = hidden[:, 0].float()
+        cols = steps_mod._top_k(h.abs(), coarse_k)
+        coarse = torch.einsum("bk,bkv->bv", torch.gather(h, 1, cols),
+                              gam["patterns"][cols].float())
+        cand = steps_mod._top_k(coarse * gam["inv_sqrt_nnz"][None, :],
+                                budget)
+        rows = embed[cand].double()                              # (B, C, d)
+        exact = torch.einsum("bd,bcd->bc", h.double(), rows)
+        best = torch.gather(cand, 1, exact.argmax(dim=1, keepdim=True))
+        top2 = torch.topk(exact, 2, dim=1).values
+        bound = cfg.d_model * 2.0 ** -24 * torch.einsum(
+            "bd,bcd->bc", h.double().abs(), rows.abs()).amax(dim=1)
+        tie = (top2[:, 0] - top2[:, 1]) <= 2 * bound
+        ok = picked[:, 0].long() == best[:, 0]
+        fail_unless(bool((ok | tie).all()),
+                    f"{what}: a GAM pick is not the exact argmax over its "
+                    "candidate set on a step that is not a near-tie")
+        same += int(ok.sum())
+        ties += int((~ok & tie).sum())
+        agree += int((picked == nxt).sum())
+        n += picked.numel()
+        tok = nxt
+    return {"agree_with_exact": agree / n, "picks": n,
+            "equal_to_recomputation": same, "near_ties_off": ties,
+            "coarse_k": coarse_k, "budget": budget,
+            "gam_step_ms_p50": float(np.median(gam_ms)),
+            "exact_step_ms_p50": float(np.median(exact_ms))}
+
+
+def train_tinyllama(torch, st):
+    """11a: tinyllama-1.1b at its published widths in bf16 trains, its
+    checkpoint round-trips bit for bit, and the restored weights serve
+    through decode_attention.  Returns the kernels-line row."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import build_batch
+    from repro_torch.models import Model
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.training import AdamWConfig, adamw_init, eval_batches
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    fail_unless(all(getattr(cfg, k) == v for k, v in LM_SHAPE.items())
+                and cfg.dtype == "bfloat16" and cfg.vocab_padded == 32256,
+                f"{LM_ARCH} config is not the published one")
+    model = Model(cfg)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS)
+    step_fn = steps_mod.make_train_step(model, opt_cfg)
+    b, s = train_size(torch, model, step_fn, cfg)
+    print(f"11a: {LM_ARCH} trains at batch {b} x seq {s} (the largest of "
+          f"{', '.join(f'{x} x {y}' for x, y in TRAIN_SIZES)} that fits)")
+
+    params = model.init(0)
+    n_params = sum(t.numel() for t in leaves(params))
+    opt = adamw_init(params)
+    rng = np.random.default_rng(0)
+    held_out = [build_batch(cfg, t, rng) for t, _ in zip(TokenPipeline(
+        vocab=cfg.vocab, seq_len=s, batch=b, seed=10_000), range(TRAIN_EVAL))]
+    before = eval_batches(model, params, held_out)
+
+    # the AdamW update's share: events around it inside the step
+    upd = []
+    orig_update = steps_mod.adamw_update
+
+    def timed_update(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = orig_update(*a, **kw)
+        ev[1].record()
+        upd.append(ev)
+        return out
+
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=s, batch=b, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    steps_mod.adamw_update = timed_update
+    try:
+        for i, tokens in zip(range(TRAIN_STEPS), pipe):
+            batch = build_batch(cfg, tokens, rng)
+            if i == TRAIN_STEPS - 1:        # the last step under the profiler
+                (params, opt, met), prof = profile_step(
+                    torch, lambda: step_fn(params, opt, batch))
+                losses.append(float(met["loss"]))
+                continue
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            params, opt, met = step_fn(params, opt, batch)
+            ev[1].record()
+            losses.append(float(met["loss"]))
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+    finally:
+        steps_mod.adamw_update = orig_update
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    upd_ms = [e[0].elapsed_time(e[1]) for e in upd[:len(step_ms)]]
+    fail_unless(all(np.isfinite(losses)), f"11a: a loss is not finite: "
+                f"{losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    fail_unless(last < first, f"11a: the mean of the last 5 losses {last} "
+                f"is not below the first 5's {first}")
+    after = eval_batches(model, params, held_out)
+    fail_unless(after["nll"] < before["nll"], f"11a: held-out nll "
+                f"{after['nll']} did not fall from {before['nll']}")
+    p50, p99 = (float(np.percentile(step_ms, p)) for p in (50, 99))
+    upd50 = float(np.percentile(upd_ms, 50))
+    smi = card_name_and_limit()
+    st.update({
+        "arch": LM_ARCH, "params": n_params, "dtype": cfg.dtype,
+        "batch": b, "seq": s, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+        "warmup": TRAIN_WARMUP, "losses": losses,
+        "loss_first5_mean": first, "loss_last5_mean": last,
+        "eval_before": dict(before), "eval_after": dict(after),
+        "step_ms": step_ms, "step_ms_p50": p50, "step_ms_p99": p99,
+        "adamw_ms": upd_ms, "adamw_ms_p50": upd50,
+        "fwd_bwd_ms_p50": float(np.percentile(
+            np.subtract(step_ms, upd_ms), 50)),
+        "tokens_per_s": b * s / (p50 / 1e3), "peak_device_memory_gb": peak_gb,
+        "profile": prof, "nvidia_smi": smi})
+    print(f"11a: {LM_ARCH} ({n_params} params, bf16), batch {b} x seq {s}, "
+          f"{TRAIN_STEPS} steps (lr {TRAIN_LR}, warmup {TRAIN_WARMUP}): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 5 "
+          f"{first:.4f}, last 5 {last:.4f}); held-out nll "
+          f"{before['nll']:.4f} -> {after['nll']:.4f} over "
+          f"{after['n_tokens']} tokens")
+    print(f"11a: step p50 {p50:.2f} ms p99 {p99:.2f} ms (CUDA events around "
+          f"each of the first {len(step_ms)} steps): forward + backward p50 "
+          f"{st['fwd_bwd_ms_p50']:.2f} ms, AdamW update p50 {upd50:.2f} ms; "
+          f"{st['tokens_per_s']:.0f} tokens/s; peak device memory "
+          f"{peak_gb:.2f} GB; card {smi}")
+    if prof["busy_ms"] is None:
+        print("11a: the last step under the profiler: it saw no device time "
+              "(launches and busy share not measured)")
+    else:
+        print(f"11a: the last step under the profiler: "
+              f"{prof['device_activities']} device activities (kernel "
+              f"launches and copies), device busy {prof['busy_ms']:.2f} of "
+              f"{prof['wall_ms']:.2f} ms ({prof['busy_share']:.1%}); top: "
+              + "; ".join(f"{k} {ms:.2f} ms x {c}"
+                          for k, ms, c in prof["top"]), flush=True)
+
+    # --- checkpoint round trip: params (bf16) and AdamW state (f32, int32)
+    path = ROOT / "build" / "phase11_checkpoint.npz"
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), {"params": params, "opt": opt},
+                    step=TRAIN_STEPS)
+    save_s = time.perf_counter() - t0
+    ckpt_gb = path.stat().st_size / 1e9
+    like = {"params": Model(cfg).init(1), "opt": adamw_init(params)}
+    t0 = time.perf_counter()
+    restored, step = restore_checkpoint(str(path), like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    path.unlink()
+    del like
+    fail_unless(step == TRAIN_STEPS, f"11a: restored step {step}")
+    live, back = flat_paths({"params": params, "opt": opt._asdict()}), \
+        flat_paths({"params": restored["params"],
+                    "opt": restored["opt"]._asdict()})
+    fail_unless(live.keys() == back.keys() and all(
+        tensor_bits_equal(torch, live[k], back[k]) for k in live),
+        "11a: a restored leaf differs from the saved one")
+    dtypes = sorted({str(t.dtype).removeprefix("torch.")
+                     for t in live.values()})
+    rparams = restored["params"]
+    del opt, restored, live, back
+    torch.cuda.empty_cache()
+    re_eval = eval_batches(model, rparams, held_out)
+    fail_unless(re_eval == after, f"11a: eval of the restored params "
+                f"{re_eval} differs from the live params' {after}")
+    st.update({"checkpoint_gb": ckpt_gb, "save_s": save_s,
+               "restore_s": restore_s, "checkpoint_dtypes": dtypes})
+    print(f"11a: checkpoint ({', '.join(dtypes)}) {ckpt_gb:.2f} GB: save "
+          f"{save_s:.1f} s, restore {restore_s:.1f} s, every leaf bit for "
+          f"bit, restored eval equal", flush=True)
+
+    # --- serve from the restored checkpoint through decode_attention
+    kcfg = cfg.with_(use_decode_kernel=True)
+    kmodel = Model(kcfg)
+    prompts = torch.as_tensor(TokenPipeline(
+        vocab=cfg.vocab, seq_len=TRAIN_PROMPT, batch=8,
+        seed=20_000).batch_at(0)[:, :TRAIN_PROMPT], device=dev)
+    cap = TRAIN_PROMPT + TRAIN_NEW + 8
+    sc = ServeConfig(max_new_tokens=TRAIN_NEW)
+    da.decode_attention.launches = 0
+    served = Engine(kcfg, rparams, sc, capacity=cap).generate(
+        {"tokens": prompts})
+    torch.cuda.synchronize()
+    launches = da.decode_attention.launches
+    want = cfg.n_layers * (TRAIN_NEW - 1)
+    fail_unless(launches == want, f"11a: decode_attention launched "
+                f"{launches} times serving the checkpoint, not {want}")
+    live_served = Engine(kcfg, params, sc, capacity=cap).generate(
+        {"tokens": prompts})
+    fail_unless(np.array_equal(served.tokens, live_served.tokens),
+                "11a: the restored weights serve other tokens than the "
+                "live ones")
+    st["decode_attention_launches"] = launches
+    print(f"11a: Engine.generate from the restored weights: decode_attention "
+          f"{launches} launches ({cfg.n_layers} x {TRAIN_NEW - 1}), tokens "
+          f"equal to the live weights'", flush=True)
+    gam = st["gam_head"] = gam_vs_exact(torch, kmodel, rparams, prompts, cap,
+                                        "11a")
+    print(f"11a: GAM serve step (coarse_k {gam['coarse_k']}, budget "
+          f"{gam['budget']}) on the trained weights: {gam['picks']} picks, "
+          f"{gam['equal_to_recomputation']} equal to the exact argmax over "
+          f"their candidates, {gam['near_ties_off']} off on near-ties; "
+          f"agreement with the exact head {gam['agree_with_exact']:.3f}; "
+          f"step p50 {gam['gam_step_ms_p50']:.2f} ms against "
+          f"{gam['exact_step_ms_p50']:.2f} ms exact", flush=True)
+
+    # --- decode_attention at this path's shape, on the trained cache
+    _, cache = kmodel.prefill(rparams, {"tokens": prompts}, cap)
+    q = torch.randn((8, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.hd), generator=torch.Generator(dev).manual_seed(2),
+                    device=dev).to(torch.bfloat16)
+    length = torch.tensor(TRAIN_PROMPT + TRAIN_NEW - 2, dtype=torch.int32,
+                          device=dev)
+    row, _ = decode_row(torch, "decode_attention@trained_checkpoint", q,
+                        cache["k"][0], cache["v"][0], length, launches, 50,
+                        graphed=True)
+    del cache, params, rparams
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_parity(torch, st):
+    """11b: one f32 train step of a narrowed tinyllama on the card and on
+    the CPU, from the same weights and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, adamw_init
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH).with_(**PARITY_LM)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(0)
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    tokens = TokenPipeline(vocab=cfg.vocab, seq_len=PARITY_SEQ,
+                           batch=PARITY_BATCH, seed=3).batch_at(0)
+    b_cpu = {"tokens": torch.as_tensor(tokens)}
+    b_gpu = {"tokens": torch.as_tensor(tokens, device=dev)}
+    l_cpu, _, g_cpu = grads_of(torch, cpu, p_cpu, b_cpu)
+    l_gpu, _, g_gpu = grads_of(torch, gpu, p_gpu, b_gpu)
+    loss_rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    fail_unless(loss_rel <= PARITY_LOSS_TOL, f"11b: loss on the card "
+                f"{float(l_gpu)} against the CPU's {float(l_cpu)}")
+    worst = max(float((g_gpu[k].cpu() - g).abs().max() / g.abs().max())
+                for k, g in g_cpu.items())
+    fail_unless(worst <= PARITY_GRAD_TOL, f"11b: a gradient leaf differs "
+                f"by {worst} x its largest |g| > {PARITY_GRAD_TOL}")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    pc, sc, mc = make_train_step(cpu, opt_cfg)(p_cpu, adamw_init(p_cpu),
+                                               b_cpu)
+    pg, sg, mg = make_train_step(gpu, opt_cfg)(p_gpu, adamw_init(p_gpu),
+                                               b_gpu)
+    met_rel = max(abs(float(mg[k]) - float(mc[k]))
+                  / max(abs(float(mc[k])), 1e-30) for k in mc)
+    fail_unless(met_rel <= PARITY_LOSS_TOL, f"11b: step metrics differ by "
+                f"{met_rel} relative")
+    b2c = 1 - opt_cfg.b2
+    fc, fg = flat_paths(pc), flat_paths(pg)
+    vc = flat_paths(sc.nu)
+    off = 0
+    for k, want in fc.items():
+        bad = (fg[k].cpu() - want).abs() > PARITY_PARAM_TOL
+        vhat = torch.sqrt(vc[k][bad] / b2c)
+        fail_unless(bool((vhat < EPS_DOMINATED * opt_cfg.eps).all()),
+                    f"11b: param {k} differs past {PARITY_PARAM_TOL} where "
+                    "AdamW's update is not eps-dominated")
+        off += int(bad.sum())
+    n = sum(t.numel() for t in fc.values())
+    st.update({"config": PARITY_LM, "batch": PARITY_BATCH,
+               "seq": PARITY_SEQ, "loss_cpu": float(l_cpu),
+               "loss_card": float(l_gpu), "loss_rel": loss_rel,
+               "grad_worst_rel_to_max": worst, "metrics_worst_rel": met_rel,
+               "params_off_eps_dominated": off, "params": n})
+    print(f"11b: tinyllama at 2 layers, d 256, f32, batch {PARITY_BATCH} x "
+          f"seq {PARITY_SEQ}: loss card {float(l_gpu):.7f} CPU "
+          f"{float(l_cpu):.7f} (rel {loss_rel:.2g}); gradients within "
+          f"{worst:.2g} x each leaf's largest |g| (tolerance "
+          f"{PARITY_GRAD_TOL}); one AdamW step: metrics within "
+          f"{met_rel:.2g}, {off} of {n} params past {PARITY_PARAM_TOL}, all "
+          "eps-dominated")
+
+
+def train_families(torch, st):
+    """11c: olmoe-1b-7b at its published widths cut to 2 layers, bf16, 3
+    steps; four other families one step each at their reduced configs."""
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_batch
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, adamw_init
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1,
+                          total_steps=OLMOE_TRAIN_STEPS)
+    full = get_config("olmoe-1b-7b")
+    cfg = full.with_(n_layers=OLMOE_TRAIN_LAYERS)
+    model = Model(cfg)
+    params = model.init(0)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=OLMOE_TRAIN_SEQ,
+                         batch=OLMOE_TRAIN_BATCH, seed=0)
+    rng = np.random.default_rng(0)
+    loss, met, grads = grads_of(torch, model, params,
+                                build_batch(cfg, pipe.batch_at(0), rng))
+    fail_unless(bool(torch.isfinite(loss)) and all_finite(torch, grads),
+                "11c olmoe: a non-finite loss or gradient")
+    fail_unless(float(met["aux"]) > 0, "11c olmoe: aux loss is not > 0")
+    del grads
+    step = make_train_step(model, opt_cfg)
+    opt = adamw_init(params)
+    losses, auxes = [], []
+    with RoutingLog(torch, True) as log:
+        for _, tokens in zip(range(OLMOE_TRAIN_STEPS), pipe):
+            params, opt, m = step(params, opt, build_batch(cfg, tokens, rng))
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
+            fail_unless(np.isfinite(float(m["grad_norm"])),
+                        "11c olmoe: a non-finite gradient norm")
+    fail_unless(all(np.isfinite(losses)) and min(auxes) > 0,
+                f"11c olmoe: losses {losses}, aux {auxes}")
+    drops = log.dropped(cfg.n_layers, skip=0)
+    pairs = cfg.n_layers * OLMOE_TRAIN_BATCH * OLMOE_TRAIN_SEQ * cfg.moe_top_k
+    st["olmoe"] = {"layers": cfg.n_layers, "of_layers": full.n_layers,
+                   "batch": OLMOE_TRAIN_BATCH, "seq": OLMOE_TRAIN_SEQ,
+                   "losses": losses, "aux": auxes,
+                   "dropped_pairs_per_step": drops.tolist(), "pairs": pairs}
+    print(f"11c: olmoe-1b-7b at published widths, depth cut to "
+          f"{cfg.n_layers} of {full.n_layers} layers, bf16, batch "
+          f"{OLMOE_TRAIN_BATCH} x seq {OLMOE_TRAIN_SEQ}, "
+          f"{OLMOE_TRAIN_STEPS} steps: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, aux "
+          f"{', '.join(f'{x:.4f}' for x in auxes)}; every gradient leaf "
+          f"finite; dropped (token, slot) pairs a step (all layers) "
+          f"{drops.tolist()} of {pairs}")
+    del model, params, opt
+    torch.cuda.empty_cache()
+    for arch in FAMILY_TRAIN:
+        cfg = get_reduced_config(arch)
+        model = Model(cfg)
+        params = model.init(0)
+        batch = build_batch(cfg, TokenPipeline(
+            vocab=cfg.vocab, seq_len=64, batch=2, seed=0).batch_at(0),
+            np.random.default_rng(0))
+        loss, _, grads = grads_of(torch, model, params, batch)
+        _, _, m = make_train_step(model, opt_cfg)(params, adamw_init(params),
+                                                  batch)
+        fail_unless(bool(torch.isfinite(loss)) and all_finite(torch, grads)
+                    and np.isfinite(float(m["loss"])),
+                    f"11c {arch}: a non-finite loss or gradient")
+        st[arch] = {"loss": float(loss), "step_loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "leaves": len(grads)}
+        print(f"11c: {arch} (reduced, f32): loss {float(loss):.4f}, one "
+              f"step: loss {float(m['loss']):.4f}, grad norm "
+              f"{float(m['grad_norm']):.4f}; all {len(grads)} gradient "
+              "leaves finite")
+
+
+def train_entry_points(torch, st):
+    """11d: the train launcher and the four examples, each a process of its
+    own on the card, all at once; each must exit 0 with its own assertions
+    holding."""
+    runs = [
+        ("train launcher", ["-m", "repro_torch.launch.train", "--arch",
+                            "olmo-1b", "--reduced", "--steps", "12",
+                            "--batch", "2", "--seq", "32", "--vocab", "128"],
+         "final loss"),
+        ("train_lm_torch", ["examples/train_lm_torch.py"],
+         "checkpoint restored at step 250"),
+        ("quickstart_torch", ["examples/quickstart_torch.py"], "\nOK\n"),
+        ("serve_stream_torch", ["examples/serve_stream_torch.py"], "\nOK\n"),
+        ("serve_gam_torch", ["examples/serve_gam_torch.py"], "\nOK\n"),
+    ]
+    waits = [run_python(args, f"11d {name}", ENTRY_TIMEOUT)
+             for name, args, _ in runs]
+    for (name, args, marker), wait in zip(runs, waits):
+        out, seconds = wait()
+        fail_unless(marker in out, f"11d: {name} printed no {marker!r}")
+        st[name] = seconds
+
+
+def phase_training(torch, report):
+    """Phase 11: LM training on the card (11a-11d)."""
+    import gc
+    gc.collect()                  # earlier phases' cycles may hold tensors
+    torch.cuda.empty_cache()
+    out: dict = {"held_at_start_gb": torch.cuda.memory_allocated() / 1e9}
+    print(f"training: {out['held_at_start_gb']:.2f} GB of device memory "
+          "allocated by earlier phases at the start", flush=True)
+    t0 = time.perf_counter()
+    out["11a"] = {}
+    row = train_tinyllama(torch, out["11a"])
+    out["11b"] = {}
+    t1 = time.perf_counter()
+    train_parity(torch, out["11b"])
+    out["11c"] = {}
+    t2 = time.perf_counter()
+    train_families(torch, out["11c"])
+    out["11d"] = {}
+    t3 = time.perf_counter()
+    train_entry_points(torch, out["11d"])
+    t4 = time.perf_counter()
+    out["seconds"] = {"11a": t1 - t0, "11b": t2 - t1, "11c": t3 - t2,
+                      "11d": t4 - t3}
+    report["training"] = out
+    print("training: seconds " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items()))
+    return [row]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3747,14 +4366,15 @@ def main() -> int:
     # ------------------------------------------ 10. the other LM families
     kernels += phase_families(torch, report)
     lap("10")
+
+    # ------------------------------------------------ 11. LM training
+    kernels += phase_training(torch, report)
+    lap("11")
     report["phase_s"] = phase_s
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
     report["kernels"] = kernels
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    report["nvidia_smi"] = smi[0] if smi else "not available"
+    report["nvidia_smi"] = card_name_and_limit()
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

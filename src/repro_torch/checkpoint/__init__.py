@@ -1,3 +1,6 @@
-from repro_torch.checkpoint.checkpoint import load_arrays, save_arrays
+from repro_torch.checkpoint.checkpoint import (load_arrays, restore_checkpoint,
+                                               save_arrays, save_checkpoint,
+                                               tree_paths)
 
-__all__ = ["load_arrays", "save_arrays"]
+__all__ = ["load_arrays", "restore_checkpoint", "save_arrays",
+           "save_checkpoint", "tree_paths"]

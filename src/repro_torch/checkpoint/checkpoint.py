@@ -1,9 +1,20 @@
-"""Flat array snapshots: ``np.savez`` files with a JSON ``__meta__`` header.
+"""Checkpoints: ``np.savez`` files with a JSON ``__meta__`` header.
 
-Counterpart of ``save_arrays``/``load_arrays`` in
-``repro.checkpoint.checkpoint``, with the same layout, so each package reads
-the other's files: arrays are stored as ``a0, a1, ...`` and the header holds
-their names, dtypes and the caller's ``extra`` dict.
+Counterpart of ``repro.checkpoint.checkpoint``, with the same layout, so each
+package reads the other's files: arrays are stored as ``a0, a1, ...`` and the
+header holds their keys and dtypes.
+
+* ``save_checkpoint`` / ``restore_checkpoint`` / ``tree_paths``: a tree of
+  tensors (nested dicts, lists, tuples and NamedTuples such as
+  ``AdamWState``) flattened as ``jax.tree_util.tree_flatten_with_path``
+  flattens it: dict keys sorted, ``None`` no leaf.  A leaf's key is its
+  ``keystr``: ``['blocks']['attn']['wq']``, ``.mu`` for a NamedTuple field,
+  ``[0]`` for a sequence index.  bf16 leaves are stored as their ``uint16``
+  bits with ``"bfloat16"`` in the header's dtypes; the header also holds
+  ``step``.  Restore takes a donor tree, refuses any other key list, and
+  gives each leaf the donor leaf's dtype and device.
+* ``save_arrays`` / ``load_arrays``: flat name -> array snapshots (the
+  retriever's catalog), with the caller's ``extra`` dict in the header.
 """
 from __future__ import annotations
 
@@ -13,13 +24,103 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["load_arrays", "save_arrays"]
+__all__ = ["load_arrays", "restore_checkpoint", "save_arrays",
+           "save_checkpoint", "tree_paths"]
 
 
 def _host(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _flatten(tree, path: str = "") -> list:
+    """(keystr, leaf) pairs in ``jax.tree_util``'s order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _flatten(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [kv for name in tree._fields
+                for kv in _flatten(getattr(tree, name), f"{path}.{name}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in _flatten(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def _unflatten(like, leaves):
+    """``like``'s structure with its leaves taken in turn from the iterator
+    ``leaves`` (in ``_flatten``'s order)."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        built = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: built[k] for k in like}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(getattr(like, n), leaves)
+                            for n in like._fields))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, leaves) for v in like)
+    return next(leaves)
+
+
+def tree_paths(tree) -> list[str]:
+    """The ``keystr`` of every leaf, in ``jax.tree_util``'s order."""
+    return [path for path, _ in _flatten(tree)]
+
+
+def _savez(path: str, meta: dict, arrays: dict) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(),
+                                           dtype=np.uint8), **arrays)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, tree, step: int | None = None) -> None:
+    """Write every leaf of ``tree`` (tensors, arrays or numbers) and
+    ``step`` atomically to ``path``."""
+    arrays = {}
+    meta: dict = {"keys": [], "step": None if step is None else int(step),
+                  "dtypes": []}
+    for i, (key, leaf) in enumerate(_flatten(tree)):
+        if torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16:
+            arr, dt = _host(leaf.view(torch.int16)).view(np.uint16), \
+                "bfloat16"
+        else:
+            arr = _host(leaf)
+            dt = str(arr.dtype)
+        meta["keys"].append(key)
+        meta["dtypes"].append(dt)
+        arrays[f"a{i}"] = arr
+    _savez(path, meta, arrays)
+
+
+def restore_checkpoint(path: str, like) -> tuple:
+    """Restore into the structure of ``like`` (a tree of tensors) -> (tree,
+    step).  Each leaf takes the dtype and device of ``like``'s leaf at its
+    key; raises ``ValueError`` when the saved keys are not ``like``'s."""
+    flat_like = _flatten(like)
+    with np.load(path) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        like_keys = [key for key, _ in flat_like]
+        if meta["keys"] != like_keys:
+            raise ValueError(
+                f"checkpoint structure mismatch:\n saved={meta['keys'][:5]}"
+                f"...\n expected={like_keys[:5]}...")
+        leaves = []
+        for i, (_, ref) in enumerate(flat_like):
+            arr = data[f"a{i}"]
+            if meta["dtypes"][i] == "bfloat16":
+                leaf = torch.from_numpy(arr.view(np.int16)).view(
+                    torch.bfloat16)
+            else:
+                leaf = torch.from_numpy(np.array(arr))
+            leaves.append(leaf.to(device=ref.device, dtype=ref.dtype))
+    return _unflatten(like, iter(leaves)), meta.get("step")
 
 
 def save_arrays(path: str, arrays: dict, extra: dict | None = None) -> None:
@@ -32,12 +133,7 @@ def save_arrays(path: str, arrays: dict, extra: dict | None = None) -> None:
         meta["keys"].append(name)
         meta["dtypes"].append(str(arr.dtype))
         out[f"a{i}"] = arr
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(),
-                                           dtype=np.uint8), **out)
-    os.replace(tmp, path)
+    _savez(path, meta, out)
 
 
 def load_arrays(path: str) -> tuple[dict[str, np.ndarray], dict]:

@@ -49,6 +49,8 @@ def truncated_normal(gen: torch.Generator, shape, scale: float,
     lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, \
         (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    if out.is_meta:                 # shapes only: nothing to draw
+        return out
     flat = out.view(-1)
     for i in range(0, flat.numel(), _DRAW):
         u = torch.rand(min(_DRAW, flat.numel() - i), generator=gen,

@@ -44,10 +44,21 @@ from repro_torch.models.transformer import (block_decode, block_prefill,
 __all__ = ["Model"]
 
 
+class _MetaGenerator:
+    """Stands in for a ``torch.Generator`` when a model is built on the meta
+    device: the initialisers read only its ``device`` there, and
+    ``truncated_normal`` draws nothing into a meta tensor."""
+    device = torch.device("meta")
+
+
 class Model:
     def __init__(self, cfg: ModelConfig, device=None):
+        """``device``: the card (``None``), ``"cpu"``, or ``"meta"``, where
+        ``init`` and ``init_cache`` give shapes and dtypes only and allocate
+        nothing (``launch.steps.abstract_params``)."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = (torch.device("meta") if str(device) == "meta"
+                       else resolve_device(device))
         self.dtype = torch_dtype(cfg)
         if cfg.family == "hybrid":
             self.n_groups, self.n_tail = divmod(cfg.n_layers, 3)
@@ -58,7 +69,8 @@ class Model:
         """Random weights at the reference's scales, drawn from a
         ``torch.Generator`` on the model's device seeded with ``seed``."""
         cfg, dt = self.cfg, self.dtype
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        gen = (_MetaGenerator() if self.device.type == "meta" else
+               torch.Generator(device=self.device).manual_seed(int(seed)))
         params: dict = {
             "embed": truncated_normal(gen, (cfg.vocab_padded, cfg.d_model),
                                       0.02, dt),
@@ -160,6 +172,23 @@ class Model:
                 aux = aux + a
         x = apply_norm(params["final_norm"], x, cfg)
         return self._logits(params, x), aux
+
+    def shifted_logits(self, params, batch):
+        """batch['tokens']: (B, S+1) -> (logits (B, S, V_padded) of inputs
+        tokens[:, :-1] at the text positions (the image prefix dropped),
+        labels tokens[:, 1:], aux loss)."""
+        tokens = self._tensor(batch["tokens"]).long()
+        logits, aux = self.forward(params, dict(batch, tokens=tokens[:, :-1]))
+        return logits[:, self.n_prefix():, :], tokens[:, 1:], aux
+
+    def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
+        """Mean next-token nll over ``shifted_logits``.  Returns (nll + 0.01
+        aux, {"nll", "aux", "ppl" = exp(min(nll, 20))})."""
+        logits, labels, aux = self.shifted_logits(params, batch)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux,
+                                  "ppl": torch.exp(torch.clamp(nll, max=20.0))}
 
     # ------------------------------------------------------------ cache
 

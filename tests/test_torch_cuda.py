@@ -1159,3 +1159,57 @@ def test_serve_launcher_hosts_2_on_the_card(dev, tmp_path):
                 "--snapshot", str(tmp_path / "mh.npz")], timeout=300)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
     assert "0 WRONG" in out.stdout and "probe bit-identical" in out.stdout
+
+
+def test_train_step_on_card_equals_cpu(dev):
+    """One f32 train step of tinyllama narrowed to 2 layers and d 256 on the
+    card and on the CPU, from the same weights and batch (``chip_smoke.py``
+    phase 11b): the loss within 1e-5 relative, each gradient leaf within
+    1e-4 x the CPU leaf's largest |g| (cuBLAS and the CPU's BLAS sum in
+    other orders), the step's metrics within 1e-5 relative, and params
+    within 1e-5 but where AdamW's denominator is eps-dominated there
+    (sqrt(v_hat) < 100 eps: the update g / (|g| + eps) then moves with the
+    tiny gradient's own relative error)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, adamw_init
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    cfg = get_config("tinyllama-1.1b").with_(
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=1, head_dim=64,
+        d_ff=704, dtype="float32")
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device=dev)
+    p_cpu = cpu.init(0)
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    tokens = TokenPipeline(vocab=cfg.vocab, seq_len=128, batch=4,
+                           seed=3).batch_at(0)
+    b_cpu = {"tokens": torch.as_tensor(tokens)}
+    b_gpu = {"tokens": torch.as_tensor(tokens, device=dev)}
+
+    def grads(model, params, batch):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = model.loss(live, batch)
+        return loss, torch.autograd.grad(loss, tree_leaves(live))
+
+    l_cpu, g_cpu = grads(cpu, p_cpu, b_cpu)
+    l_gpu, g_gpu = grads(gpu, p_gpu, b_gpu)
+    assert abs(float(l_gpu) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    for gc, gg in zip(g_cpu, g_gpu):
+        assert float((gg.cpu() - gc).abs().max()) <= \
+            1e-4 * float(gc.abs().max())
+
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    pc, sc, mc = make_train_step(cpu, opt_cfg)(p_cpu, adamw_init(p_cpu),
+                                               b_cpu)
+    pg, _, mg = make_train_step(gpu, opt_cfg)(p_gpu, adamw_init(p_gpu),
+                                              b_gpu)
+    for k in mc:
+        assert abs(float(mg[k]) - float(mc[k])) <= \
+            1e-5 * max(abs(float(mc[k])), 1e-30), k
+    b2c = 1 - opt_cfg.b2
+    leaves = zip(tree_leaves(pc), tree_leaves(pg), tree_leaves(sc.nu))
+    for want, got, nu in leaves:
+        off = (got.cpu() - want).abs() > 1e-5
+        assert bool((torch.sqrt(nu[off] / b2c) < 100 * opt_cfg.eps).all())

@@ -11,18 +11,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "tests" / "multihost" / "run_multiprocess_torch.py"]
 REFERENCE_PACKAGES = sorted(
     p.parent.name for p in (ROOT / "src" / "repro").glob("*/__init__.py"))
 # names of the reference's package namespaces that only the reference has,
 # each with the ROADMAP queue 1 item that brings it
-REFERENCE_ONLY = {
-    "checkpoint": {"restore_checkpoint": 8, "save_checkpoint": 8,
-                   "tree_paths": 8},
-    "training": {"EvalResult": 8, "eval_batches": 8},
-}
+REFERENCE_ONLY: dict = {}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -43,6 +40,8 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.models.rglru, repro_torch.models.model\n"
             "import repro_torch.retriever.multihost, repro_torch.launch\n"
             "import repro_torch.launch.procs, repro_torch.launch.serve\n"
+            "import repro_torch.launch.steps, repro_torch.launch.train\n"
+            "import repro_torch.training.evaluate, repro_torch.checkpoint\n"
             "import importlib.util as u, pathlib\n"
             f"p = pathlib.Path({str(PORT_FILES[-1])!r})\n"
             "spec = u.spec_from_file_location('runner', p)\n"
