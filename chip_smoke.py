@@ -115,7 +115,7 @@ Phases, each of which fails the run if it fails:
    once for a non-empty delta; after the swap and after the repartition the
    answers must equal a fresh ``gam-device`` build over the catalog bit for
    bit, the heterogeneous layout the uniform one, and the restored service
-   the live one.  Latency and queries/s come from three timed windows of 100
+   the live one.  Latency and queries/s come from three timed windows of 50
    requests each, run back to back and held against the oracle after the
    window: the uniform layout with the streamed delta through ``query`` and
    through the ``Microbatcher``, and the repartitioned layout through
@@ -278,6 +278,31 @@ Phases, each of which fails the run if it fails:
    ``examples/{train_lm,quickstart,serve_stream,serve_gam}_torch.py``, each
    a process on the card, started together: each must exit 0 with its own
    assertions holding.
+12. A device mesh: two ``chip_smoke.py --mesh-worker`` processes share the
+   card in one group (gloo for both devices; DTensor's all-gather and
+   reduce-scatter staged through host memory, ``launch.mesh.STAGED``,
+   printed with calls, bytes and seconds).  12a: the 1M catalog as one
+   ``sharded`` index (8 shards) placed over a 2-rank ``items`` mesh, 4
+   shards a rank: 8 requests of 256 must equal single-device ``sharded``
+   in the same process bit for bit (ids, scores, ``n_scored``), each rank
+   launching ``gam_retrieve`` once a request and ``tess_project`` for its
+   maps (counted from 0 around the requests); the kernel over a rank's
+   rows is held against its plain version and timed; each rank's resident
+   index bytes, request p50/p99 beside single-device.  12b: tinyllama-1.1b
+   at published widths, bf16, 4 steps of the unchanged
+   ``make_train_step`` on DTensors on (data 2, model 1) and (data 1,
+   model 2) at the largest of 4 x 1,024, 2 x 1,024, 4 x 512 (global) that
+   fits 0.48 of the card a rank (the first step probes it): the loss must
+   fall, a rank's resident param + moment bytes stay the specs' share; at
+   f32 on 2 layers, d 256, the sharded loss within 1e-5 relative and every
+   gradient leaf within 1e-4 of its largest against one rank's.  12c:
+   tinyllama-1.1b serving greedily through the prefill and serve steps on
+   (data 2, model 1), the cache sharded on batch: the first token of every
+   row equal to single-device ``Engine``'s, the steps each row holds
+   counted, ``decode_attention`` launched 22 x 31 times a rank and held
+   against its plain version and SDPA on the rank's sequences; at f32 on
+   2 layers, d 256, the sharded prefill and 31 decode steps give one
+   device's tokens at every step, every cache leaf within 1e-5.
 Then the ``kernels`` JSON line (every kernel, at each shape above), the
 card's name and power limit, and the result line.
 
@@ -1275,7 +1300,7 @@ SVC_FRESH, SVC_REWRITE, SVC_DELETE = 1024, 1024, 512   # rows per mutation
 SVC_SLICE_ROWS = 1 << 18       # compaction map slice
 SVC_TARGET_BLOCKS = 2048       # repartition: blocks a shard is cut into
 SVC_INT8_REQUESTS = 3
-SVC_WINDOW = 100               # requests in each timed window
+SVC_WINDOW = 50                # requests in each timed window
 SVC_SHARE = 20                 # requests timed for the kernel's share
 DEVICE = "cuda"                # the card; phases 6-7 run nowhere else
 
@@ -3820,6 +3845,483 @@ def phase_training(torch, report):
     return [row]
 
 
+# ------------------------------------------------ 12. over a device mesh
+
+MESH_RANKS = 2                 # processes sharing the one card (12a-c)
+MESH_REQUESTS = 8              # of BATCH queries after one warm-up: 2,048
+MESH_TRAIN_SIZES = ((4, 1024), (2, 1024), (4, 512))   # global, largest first
+MESH_TRAIN_STEPS = 4           # the first probes the size; 3 are timed
+MESH_TRAIN_MESHES = ((2, 1), (1, 2))                  # (data, model)
+MESH_SERVE_BATCH, MESH_PROMPT, MESH_NEW = 8, 1024, 32
+MESH_MEMORY_SHARE = 0.48       # of the card, each rank (12b's size probe)
+MESH_GROUP_TIMEOUT = 300       # s: the gloo group's rendezvous, collectives
+MESH_DEADLINE = 600            # s: both workers, or the phase fails
+
+
+def local_bytes(tree) -> int:
+    """Bytes a rank holds of a tree of DTensors (or tensors)."""
+    return int(sum((t.to_local() if hasattr(t, "to_local") else t).numel()
+                   * t.element_size() for t in leaves(tree)))
+
+
+def mesh_index_part(torch, rank, dev) -> dict:
+    """12a: phase 6's catalog as one ``sharded`` index placed over the
+    2-rank ``items`` mesh, against single-device ``sharded`` in the same
+    process, request by request (posting bucket sized to the longest
+    list, so no shard spills)."""
+    from repro_torch.core.mapping import GamConfig, sparse_map
+    from repro_torch.launch.mesh import make_index_mesh
+    from repro_torch.retriever import RetrieverSpec, open_retriever
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
+    items, centers = clustered_catalog(N_ITEMS, K, N_CLUSTERS, SIGMA,
+                                       seed=N_ITEMS)
+    reqs = requests(centers, MESH_REQUESTS + 1, BATCH, SIGMA, seed=12)
+    cfg = GamConfig(k=K, scheme="parse_tree", threshold=THRESHOLD)
+    tau, vals = sparse_map(torch.as_tensor(items, device=dev), cfg)
+    nz = (vals != 0).cpu().numpy()
+    bucket = int(np.bincount(tau.cpu().numpy()[nz], minlength=cfg.p).max())
+    del tau, vals
+    spec = RetrieverSpec(cfg=cfg, backend="sharded", n_shards=SVC_SHARDS,
+                         min_overlap=MIN_OVERLAP, kappa=KAPPA, bucket=bucket,
+                         batch_size=BATCH)
+    mesh = make_index_mesh(MESH_RANKS)
+    t0 = time.perf_counter()
+    placed = open_retriever(spec, items=items, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    single = open_retriever(spec, items=items, device=dev)
+    base = placed.base
+    fail_unless(base.placed and base.shard_hi - base.shard_lo
+                == SVC_SHARDS // MESH_RANKS, f"12a rank {rank}: the index "
+                f"is not placed ({base.shard_lo}..{base.shard_hi})")
+    placed.query(reqs[0])
+    single.query(reqs[0])
+
+    def timed(r, users):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = r.query(users)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    gr.gam_retrieve.launches = tp.tess_project.launches = 0
+    got = [timed(placed, u) for u in reqs[1:]]
+    launches = {"gam_retrieve": gr.gam_retrieve.launches,
+                "tess_project": tp.tess_project.launches}
+    want = [timed(single, u) for u in reqs[1:]]
+    for i, ((a, _), (b, _)) in enumerate(zip(got, want)):
+        for f in ("ids", "scores", "n_scored"):
+            fail_unless(np.array_equal(getattr(a, f), getattr(b, f)),
+                        f"12a rank {rank} request {i}: {f} differ from "
+                        "single-device sharded")
+    fail_unless(launches["gam_retrieve"] == MESH_REQUESTS
+                and launches["tess_project"] > 0, f"12a rank {rank}: "
+                f"launches {launches}")
+    # the kernel over this rank's rows against its plain version
+    users = torch.as_tensor(reqs[1], device=dev)
+    tau, vals = sparse_map(users, cfg)
+    meta = base.metas[0]
+    args = (users, base.factors_g[0], tau, vals != 0, meta, KAPPA)
+    kw = dict(min_overlap=MIN_OVERLAP, alive=base.alive_g[0])
+    k_out = gr.gam_retrieve(*args, **kw)
+    p_out = gr.gam_retrieve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    fail_unless(torch.equal(k_out.rows, p_out.rows)
+                and torch.equal(k_out.blk_counts, p_out.blk_counts)
+                and torch.equal(k_out.skipped, p_out.skipped),
+                f"12a rank {rank}: gam_retrieve on the rank's rows differs "
+                "from its plain version")
+    ulp = max_ulp(k_out.vals.cpu().numpy(), p_out.vals.cpu().numpy())
+    fail_unless(ulp <= 4, f"12a rank {rank}: scores {ulp} ulp from plain")
+    n_bytes, flops = retrieve_work(torch, args, kw, k_out)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    z = users
+    t_bytes = BATCH * K * (4 + 1 + 4)
+    tb_ms, tb_by = bound_ms(t_bytes, 3 * K * BATCH)
+    tess_err = float((tp.tess_project(z)[1] - tp.tess_project_plain(z)[1])
+                     .abs().max())
+    rows = [{"name": f"gam_retrieve@mesh rank {rank}", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/gam_retrieve.cu",
+             "replaces": "src/repro/kernels/gam_retrieve.py:384",
+             "launches": launches["gam_retrieve"],
+             "max_abs_err": float((k_out.vals - p_out.vals).abs().max()),
+             "ms": time_ms(torch, lambda: gr.gam_retrieve(*args, **kw), 20),
+             "plain_ms": time_ms(torch, lambda: gr.gam_retrieve_plain(
+                 *args, **kw), 3),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
+            {"name": f"tess_project@mesh rank {rank}", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/tess_project.cu",
+             "replaces": "src/repro/kernels/tess_project.py:57",
+             "launches": launches["tess_project"], "max_abs_err": tess_err,
+             "ms": time_ms(torch, lambda: tp.tess_project(z), 20),
+             "plain_ms": time_ms(torch, lambda: tp.tess_project_plain(z), 3),
+             "bound_ms": tb_ms, "bound_by": tb_by, "library_ms": None}]
+    lat_p = [ms for _, ms in got]
+    lat_s = [ms for _, ms in want]
+    out = {"build_s": build_s, "shards": [base.shard_lo, base.shard_hi],
+           "rows": [base.row_lo, base.row_hi], "launches": launches,
+           "device_bytes": base.device_bytes(),
+           "device_bytes_single": single.base.device_bytes(),
+           "p50_ms": float(np.percentile(lat_p, 50)),
+           "p99_ms": float(np.percentile(lat_p, 99)),
+           "single_p50_ms": float(np.percentile(lat_s, 50)),
+           "single_p99_ms": float(np.percentile(lat_s, 99)),
+           "kernel_rows": rows, "local_rows": meta.n_rows}
+    del placed, single, base, args, k_out, p_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_all_ok(torch, ok: bool) -> bool:
+    """Every rank's ``ok``, on every rank (a CPU all-reduce)."""
+    import torch.distributed as dist
+    flag = torch.tensor([int(ok)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def mesh_train_part(torch, rank, dev) -> dict:
+    """12b: tinyllama-1.1b at published widths trains 4 steps on two
+    2-rank meshes, (data 2, model 1) and (data 1, model 2), through the
+    unchanged ``make_train_step`` on DTensors (the first step probes the
+    size and is not timed); and at f32 on the 2-layer d-256 config, the
+    sharded loss and gradients against one rank's."""
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import STAGED, make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_batch
+    from repro_torch.models import Model
+    from repro_torch.sharding.specs import batch_specs, param_shardings, place
+    from repro_torch.training import AdamWConfig, adamw_init
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg, device=dev)
+    step_fn = make_train_step(model, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+    torch.cuda.set_per_process_memory_fraction(MESH_MEMORY_SHARE)
+    full_bytes = sum(t.numel() for t in leaves(
+        Model(cfg, device="meta").init(0)))
+    full_bytes = {"params": full_bytes * 2, "moments": full_bytes * 8}
+    out = {"meshes": {}}
+
+    def start(mesh, b, s):
+        params = model.init(0)
+        placed = place(params, param_shardings(mesh, params))
+        del params
+        torch.cuda.empty_cache()
+        return placed, adamw_init(placed), TokenPipeline(
+            vocab=cfg.vocab, seq_len=s, batch=b, seed=0)
+
+    def batch_of(mesh, tokens):
+        batch = build_batch(cfg, tokens, np.random.default_rng(0))
+        return place(batch, batch_specs(cfg, mesh, batch))
+
+    for shape in MESH_TRAIN_MESHES:
+        mesh = make_mesh(shape, ("data", "model"))
+        name = f"data {shape[0]} x model {shape[1]}"
+        # the first step probes the size: the largest that fits
+        size = None
+        for b, s in MESH_TRAIN_SIZES:
+            params = opt = met = None
+            try:
+                params, opt, pipe = start(mesh, b, s)
+                resident = {"params": local_bytes(params),
+                            "moments": local_bytes(opt.mu)
+                            + local_bytes(opt.nu)}
+                torch.cuda.reset_peak_memory_stats()
+                staged0 = {k: dict(v) for k, v in STAGED.items()}
+                params, opt, met = step_fn(params, opt,
+                                           batch_of(mesh, pipe.batch_at(0)))
+                torch.cuda.synchronize()
+                ok = True
+            except torch.cuda.OutOfMemoryError:
+                ok = False
+            if mesh_all_ok(torch, ok):
+                size = (b, s)
+                break
+            del params, opt, met
+            torch.cuda.empty_cache()
+            print(f"12b {name}: global batch {b} x seq {s} does not fit "
+                  f"{MESH_MEMORY_SHARE} of the card a rank")
+        fail_unless(size is not None, f"12b {name}: no size fits")
+        b, s = size
+        losses, step_ms = [float(met["loss"])], []
+        for i in range(1, MESH_TRAIN_STEPS):
+            batch = batch_of(mesh, pipe.batch_at(i))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batch)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        fail_unless(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                    f"12b {name}: losses {losses} do not fall")
+        after = {"params": local_bytes(params),
+                 "moments": local_bytes(opt.mu) + local_bytes(opt.nu)}
+        fail_unless(after == resident, f"12b {name}: a rank's resident "
+                    f"bytes moved from {resident} to {after}")
+        p50 = float(np.percentile(step_ms, 50))
+        out["meshes"][name] = {
+            "batch": b, "seq": s, "losses": losses, "step_ms": step_ms,
+            "step_ms_p50": p50, "step_ms_p99": float(np.percentile(step_ms,
+                                                                   99)),
+            "tokens_per_s": b * s / (p50 / 1e3),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "resident_bytes": resident, "single_rank_bytes": full_bytes,
+            "staged_per_step": {
+                name: {k: (v - staged0.get(name, {}).get(k, 0))
+                       / MESH_TRAIN_STEPS for k, v in st.items()}
+                for name, st in STAGED.items()}}
+        del params, opt, met, batch
+        torch.cuda.empty_cache()
+        # f32, 2 layers, d 256: the sharded loss and gradients against one
+        # rank's on the same batch
+        small = get_reduced_config(LM_ARCH)
+        sm = Model(small, device=dev)
+        p1 = sm.init(0)
+        tokens = TokenPipeline(vocab=small.vocab, seq_len=64, batch=4,
+                               seed=1).batch_at(0)
+        b1 = {"tokens": torch.as_tensor(tokens, device=dev)}
+        loss1, _, g1 = grads_of(torch, sm, p1, b1)
+        pm = place(p1, param_shardings(mesh, p1))
+        from repro_torch.models.spmd import replicated_constants
+        with replicated_constants(True):
+            lossm, _, gm = grads_of(torch, sm, pm, place(
+                b1, batch_specs(small, mesh, b1)))
+        lossm = float(lossm.full_tensor())
+        rel = abs(lossm - float(loss1)) / abs(float(loss1))
+        gerr = max(float((gm[k].full_tensor() - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30) for k, g in g1.items())
+        fail_unless(rel <= 1e-5 and gerr <= 1e-4, f"12b {name}: f32 loss "
+                    f"rel diff {rel}, gradient diff {gerr} of the leaf's "
+                    "largest")
+        out["meshes"][name].update(f32_loss_rel=rel, f32_grad_rel=gerr)
+        del sm, p1, pm, g1, gm
+        torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    return out
+
+
+def mesh_serve_part(torch, rank, dev) -> dict:
+    """12c: tinyllama-1.1b at published widths serves greedily through the
+    unchanged prefill and serve steps on a (data 2, model 1) mesh (the
+    cache sharded on batch), ``decode_attention`` launched on each rank's
+    sequences, against single-device ``Engine`` in the same process; and
+    at f32 on the 2-layer d-256 config, the sharded prefill and decode
+    steps against one device's: the same tokens, the cache within 1e-5."""
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.sharding.specs import batch_specs, param_shardings, place
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    cfg = get_config(LM_ARCH).with_(use_decode_kernel=True)
+    capacity = MESH_PROMPT + MESH_NEW + 8
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab, (MESH_SERVE_BATCH, MESH_PROMPT)).astype(np.int32)
+    want = Engine(cfg, params, ServeConfig(max_new_tokens=MESH_NEW),
+                  capacity=capacity, device=dev).generate(
+        {"tokens": torch.as_tensor(prompts, device=dev)}).tokens
+    mesh = make_mesh((MESH_RANKS, 1), ("data", "model"))
+    placed = place(params, param_shardings(mesh, params))
+    del params
+    torch.cuda.empty_cache()
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    batch = place(batch, batch_specs(cfg, mesh, batch))
+    prefill = make_prefill_step(model, capacity)
+    serve = make_serve_step(model)
+    da.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(placed, batch)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    toks, step_ms = [tok], []
+    for _ in range(MESH_NEW - 1):
+        t = time.perf_counter()
+        tok, cache = serve(placed, cache, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        toks.append(tok)
+    launches = da.decode_attention.launches
+    got = torch.cat([x.full_tensor() for x in toks], dim=1).cpu().numpy()
+    fail_unless(launches == cfg.n_layers * (MESH_NEW - 1), f"12c rank "
+                f"{rank}: decode_attention launched {launches} times, not "
+                f"{cfg.n_layers} x {MESH_NEW - 1}")
+    same = got == np.asarray(want)
+    held = np.where(same.all(axis=1), MESH_NEW, np.argmin(same, axis=1))
+    fail_unless(bool(same[:, 0].all()), f"12c rank {rank}: the first "
+                "token differs from single-device Engine's")
+    f32 = mesh_serve_f32(torch, rank, dev, mesh, get_reduced_config(
+        LM_ARCH).with_(use_decode_kernel=True))
+    # the kernel on this rank's sequences: layer 0's local cache
+    k_loc = cache["k"].to_local()[0]
+    v_loc = cache["v"].to_local()[0]
+    b_loc = k_loc.shape[0]
+    length = torch.tensor(MESH_PROMPT + MESH_NEW - 2, dtype=torch.int32,
+                          device=dev)
+    q = torch.randn((b_loc, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.hd), generator=torch.Generator(device=dev)
+                    .manual_seed(rank), device=dev).to(k_loc.dtype)
+    row, _ = decode_row(torch, f"decode_attention@mesh rank {rank}", q,
+                        k_loc, v_loc, length, launches, 20, True)
+    return {"tokens_held": held.tolist(), "prefill_ms": prefill_ms,
+            "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_p99": float(np.percentile(step_ms, 99)),
+            "launches": launches, "local_batch": b_loc, "kernel_row": row,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "f32": f32}
+
+
+def mesh_serve_f32(torch, rank, dev, mesh, cfg) -> dict:
+    """12c's f32 check: prefill of MESH_SERVE_BATCH prompts of 64 and
+    MESH_NEW - 1 greedy decode steps, on the mesh (the cache sharded on
+    batch, ``decode_attention`` on each rank's sequences) and on one
+    device from the same params.  The tokens must be equal at every step
+    and every cache leaf within 1e-5."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.sharding.specs import batch_specs, param_shardings, place
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    placed = place(params, param_shardings(mesh, params))
+    prompts = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (MESH_SERVE_BATCH, 64)), dtype=torch.int32, device=dev)
+    prefill = make_prefill_step(model, 64 + MESH_NEW + 8)
+    serve = make_serve_step(model)
+    lw, cw = prefill(params, {"tokens": prompts})
+    batch = {"tokens": prompts}
+    lg, cg = prefill(placed, place(batch, batch_specs(cfg, mesh, batch)))
+    tw = torch.argmax(lw, dim=-1).to(torch.int32)
+    tg = torch.argmax(lg, dim=-1).to(torch.int32)
+    want, got = [tw], [tg.full_tensor()]
+    for _ in range(MESH_NEW - 1):
+        tw, cw = serve(params, cw, tw)
+        tg, cg = serve(placed, cg, tg)
+        want.append(tw)
+        got.append(tg.full_tensor())
+    same = (torch.cat(got, 1) == torch.cat(want, 1)).cpu().numpy()
+    held = np.where(same.all(axis=1), MESH_NEW, np.argmin(same, axis=1))
+    cache_err = max(
+        float((v.full_tensor() if hasattr(v, "full_tensor") else v).float()
+              .sub(cw[k].float()).abs().max()) for k, v in cg.items())
+    fail_unless(bool(same.all()) and cache_err <= 1e-5, f"12c rank {rank}: "
+                f"f32 tokens held {held.tolist()} of {MESH_NEW} steps, cache "
+                f"{cache_err} from one device's (limit 1e-5)")
+    return {"tokens_held": held.tolist(), "cache_max_abs": cache_err}
+
+
+def mesh_worker(rank: int, coordinator: str,
+                parts: str = "12a,12b,12c") -> int:
+    """Phase 12's SPMD body: one of two processes sharing the card in one
+    gloo group (both devices' backends gloo; DTensor's all-gather staged
+    through host memory, counted), running 12a-c.  Prints its numbers as
+    one ``MESH12 {json}`` line."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import STAGED
+    from repro_torch.launch.procs import init_process_group
+    init_process_group(coordinator, MESH_RANKS, rank,
+                       timeout_s=MESH_GROUP_TIMEOUT,
+                       backend="cpu:gloo,cuda:gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank, "seconds": {}}
+    for name, part in (("12a", lambda: mesh_index_part(torch, rank, dev)),
+                       ("12b", lambda: mesh_train_part(torch, rank, dev)),
+                       ("12c", lambda: mesh_serve_part(torch, rank, dev))):
+        if name not in parts.split(","):
+            continue
+        t = time.perf_counter()
+        out[name] = part()
+        out["seconds"][name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    out["staged"] = STAGED
+    print("MESH12 " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_mesh(torch, report, parts="12a,12b,12c"):
+    """Phase 12: two processes on the card as a device mesh (12a the
+    mesh-placed index, 12b sharded train steps, 12c a sharded serve
+    step; ``parts`` names those to run)."""
+    procs = importlib.import_module("repro_torch.launch.procs")
+    torch.cuda.empty_cache()
+    coordinator = procs.free_coordinator()
+    t0 = time.perf_counter()
+    codes, outs = procs.run_workers(
+        [[sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+          str(r), coordinator, parts]
+         for r in range(MESH_RANKS)],
+        timeout=MESH_DEADLINE, capture=True)
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r, text in enumerate(outs):
+        for line in text.splitlines():
+            if line.startswith("MESH12 "):
+                ranks.append(json.loads(line[7:]))
+            else:
+                print(f"  [rank {r}] {line}")
+    fail_unless(codes == [0] * MESH_RANKS and len(ranks) == MESH_RANKS,
+                f"mesh workers exited {codes} (124: past the "
+                f"{MESH_DEADLINE} s deadline)")
+    rows = []
+    for o in ranks:
+        if "12a" not in o:
+            continue
+        a = o["12a"]
+        rows += a["kernel_rows"]
+        g = a["kernel_rows"][0]
+        print(f"12a rank {o['rank']}: shards {a['shards']} rows {a['rows']}"
+              f" built in {a['build_s']:.1f} s; {MESH_REQUESTS} requests of "
+              f"{BATCH} = single-device sharded bit for bit (ids, scores, "
+              f"n_scored); launches {a['launches']}; resident index "
+              f"{sum(a['device_bytes'].values())} bytes against "
+              f"{sum(a['device_bytes_single'].values())} on one device; "
+              f"request p50 {a['p50_ms']:.3f} ms p99 {a['p99_ms']:.3f} ms "
+              f"(single-device {a['single_p50_ms']:.3f} / "
+              f"{a['single_p99_ms']:.3f} ms, host clock); gam_retrieve on "
+              f"its {a['local_rows']} rows {g['ms']:.4f} ms, plain "
+              f"{g['plain_ms']:.3f} ms, bound {g['bound_ms']:.5f} ms "
+              f"({g['bound_by']})")
+    for o in ranks:
+        for name, m in o.get("12b", {"meshes": {}})["meshes"].items():
+            print(f"12b rank {o['rank']} {name}: global batch {m['batch']} x "
+                  f"seq {m['seq']}, losses {[round(x, 4) for x in m['losses']]}"
+                  f", step p50 {m['step_ms_p50']:.1f} ms p99 "
+                  f"{m['step_ms_p99']:.1f} ms, {m['tokens_per_s']:.0f} "
+                  f"tokens/s, peak {m['peak_gb']:.2f} GB, resident "
+                  f"{m['resident_bytes']} bytes against one rank's "
+                  f"{m['single_rank_bytes']}; staged through host memory a "
+                  f"step {m['staged_per_step']}; f32 2-layer loss rel "
+                  f"{m['f32_loss_rel']:.3g}, gradients "
+                  f"{m['f32_grad_rel']:.3g} of each leaf's largest")
+    for o in ranks:
+        if "12c" not in o:
+            continue
+        c = o["12c"]
+        rows.append(c["kernel_row"])
+        k = c["kernel_row"]
+        print(f"12c rank {o['rank']}: {c['local_batch']} local sequences, "
+              f"tokens held against single-device Engine {c['tokens_held']}"
+              f" steps; decode_attention launches {c['launches']}; prefill "
+              f"{c['prefill_ms']:.1f} ms, decode step p50 "
+              f"{c['step_ms_p50']:.2f} ms p99 {c['step_ms_p99']:.2f} ms; "
+              f"kernel on the local slice {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f} ms, sdpa {k['library_ms']:.4f} ms; f32 "
+              f"2-layer: tokens held {c['f32']['tokens_held']} steps, cache "
+              f"{c['f32']['cache_max_abs']:.3g} from one device's")
+    for o in ranks:
+        print(f"12 rank {o['rank']}: seconds {o['seconds']}; collectives "
+              f"staged through host memory {o['staged']}")
+    report["mesh"] = {"seconds": seconds, "ranks": ranks}
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3829,6 +4331,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--multihost-worker"]:
         rank, coordinator, bucket = sys.argv[2:5]
         return multihost_worker(int(rank), coordinator, int(bucket))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        rank, coordinator, parts = sys.argv[2:5]
+        return mesh_worker(int(rank), coordinator, parts)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.checkpoint import load_arrays
     from repro_torch.compress import quantize_int8, score_error_bound
@@ -4370,6 +4875,10 @@ def main() -> int:
     # ------------------------------------------------ 11. LM training
     kernels += phase_training(torch, report)
     lap("11")
+
+    # --------------------------------------- 12. over a device mesh
+    kernels += phase_mesh(torch, report)
+    lap("12")
     report["phase_s"] = phase_s
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))

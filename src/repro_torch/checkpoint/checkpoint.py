@@ -12,7 +12,8 @@ header holds their keys and dtypes.
   ``[0]`` for a sequence index.  bf16 leaves are stored as their ``uint16``
   bits with ``"bfloat16"`` in the header's dtypes; the header also holds
   ``step``.  Restore takes a donor tree, refuses any other key list, and
-  gives each leaf the donor leaf's dtype and device.
+  gives each leaf the donor leaf's dtype and device (and a DTensor donor's
+  placements).  A tree of DTensors saves to the file its whole tree gives.
 * ``save_arrays`` / ``load_arrays``: flat name -> array snapshots (the
   retriever's catalog), with the caller's ``extra`` dict in the header.
 """
@@ -25,7 +26,16 @@ import numpy as np
 import torch
 
 __all__ = ["load_arrays", "restore_checkpoint", "save_arrays",
-           "save_checkpoint", "tree_paths"]
+           "save_checkpoint", "tree_flatten_with_path", "tree_paths",
+           "tree_unflatten"]
+
+
+def _whole(leaf):
+    """A DTensor leaf as its whole tensor (a collective: every rank calls
+    it); any other leaf as it is."""
+    if hasattr(leaf, "full_tensor"):
+        return leaf.full_tensor()
+    return leaf
 
 
 def _host(leaf) -> np.ndarray:
@@ -34,41 +44,44 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _flatten(tree, path: str = "") -> list:
-    """(keystr, leaf) pairs in ``jax.tree_util``'s order."""
+def tree_flatten_with_path(tree, path: str = "", is_leaf=None) -> list:
+    """(keystr, leaf) pairs in ``jax.tree_util``'s order; ``is_leaf(x)``
+    true stops the descent at ``x``."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [(path, tree)]
     if isinstance(tree, dict):
-        return [kv for k in sorted(tree)
-                for kv in _flatten(tree[k], f"{path}[{k!r}]")]
+        return [kv for k in sorted(tree) for kv in tree_flatten_with_path(
+            tree[k], f"{path}[{k!r}]", is_leaf)]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return [kv for name in tree._fields
-                for kv in _flatten(getattr(tree, name), f"{path}.{name}")]
+        return [kv for name in tree._fields for kv in tree_flatten_with_path(
+            getattr(tree, name), f"{path}.{name}", is_leaf)]
     if isinstance(tree, (list, tuple)):
         return [kv for i, v in enumerate(tree)
-                for kv in _flatten(v, f"{path}[{i}]")]
+                for kv in tree_flatten_with_path(v, f"{path}[{i}]", is_leaf)]
     return [(path, tree)]
 
 
-def _unflatten(like, leaves):
+def tree_unflatten(like, leaves):
     """``like``'s structure with its leaves taken in turn from the iterator
-    ``leaves`` (in ``_flatten``'s order)."""
+    ``leaves`` (in :func:`tree_flatten_with_path`'s order)."""
     if like is None:
         return None
     if isinstance(like, dict):
-        built = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        built = {k: tree_unflatten(like[k], leaves) for k in sorted(like)}
         return {k: built[k] for k in like}
     if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_unflatten(getattr(like, n), leaves)
+        return type(like)(*(tree_unflatten(getattr(like, n), leaves)
                             for n in like._fields))
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, leaves) for v in like)
+        return type(like)(tree_unflatten(v, leaves) for v in like)
     return next(leaves)
 
 
 def tree_paths(tree) -> list[str]:
     """The ``keystr`` of every leaf, in ``jax.tree_util``'s order."""
-    return [path for path, _ in _flatten(tree)]
+    return [path for path, _ in tree_flatten_with_path(tree)]
 
 
 def _savez(path: str, meta: dict, arrays: dict) -> None:
@@ -82,11 +95,16 @@ def _savez(path: str, meta: dict, arrays: dict) -> None:
 
 def save_checkpoint(path: str, tree, step: int | None = None) -> None:
     """Write every leaf of ``tree`` (tensors, arrays or numbers) and
-    ``step`` atomically to ``path``."""
+    ``step`` atomically to ``path``.  DTensor leaves (a tree placed on a
+    device mesh) are gathered one at a time into the same file the whole
+    tree gives; every rank calls it, rank 0 writes and the others wait."""
     arrays = {}
     meta: dict = {"keys": [], "step": None if step is None else int(step),
                   "dtypes": []}
-    for i, (key, leaf) in enumerate(_flatten(tree)):
+    placed = False
+    for i, (key, leaf) in enumerate(tree_flatten_with_path(tree)):
+        placed |= hasattr(leaf, "full_tensor")
+        leaf = _whole(leaf)
         if torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16:
             arr, dt = _host(leaf.view(torch.int16)).view(np.uint16), \
                 "bfloat16"
@@ -96,14 +114,22 @@ def save_checkpoint(path: str, tree, step: int | None = None) -> None:
         meta["keys"].append(key)
         meta["dtypes"].append(dt)
         arrays[f"a{i}"] = arr
-    _savez(path, meta, arrays)
+    if not placed:
+        _savez(path, meta, arrays)
+        return
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        _savez(path, meta, arrays)
+    dist.barrier()
 
 
 def restore_checkpoint(path: str, like) -> tuple:
     """Restore into the structure of ``like`` (a tree of tensors) -> (tree,
     step).  Each leaf takes the dtype and device of ``like``'s leaf at its
-    key; raises ``ValueError`` when the saved keys are not ``like``'s."""
-    flat_like = _flatten(like)
+    key, and a DTensor donor leaf's mesh and placements (each rank keeps
+    its own block of the file's array); raises ``ValueError`` when the
+    saved keys are not ``like``'s."""
+    flat_like = tree_flatten_with_path(like)
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         like_keys = [key for key, _ in flat_like]
@@ -119,8 +145,22 @@ def restore_checkpoint(path: str, like) -> tuple:
                     torch.bfloat16)
             else:
                 leaf = torch.from_numpy(np.array(arr))
-            leaves.append(leaf.to(device=ref.device, dtype=ref.dtype))
-    return _unflatten(like, iter(leaves)), meta.get("step")
+            leaves.append(_like(leaf, ref))
+    return tree_unflatten(like, iter(leaves)), meta.get("step")
+
+
+def _like(leaf: torch.Tensor, ref) -> torch.Tensor:
+    """``leaf`` (whole, on the host) with ``ref``'s dtype and device, and
+    for a DTensor ``ref`` its placements: this rank's block of ``leaf``."""
+    if not hasattr(ref, "device_mesh"):
+        return leaf.to(device=ref.device, dtype=ref.dtype)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.specs import local_block
+    mesh, pl = ref.device_mesh, ref.placements
+    block = local_block(leaf, mesh, pl).to(
+        device=ref.to_local().device, dtype=ref.dtype)
+    return DTensor.from_local(block, mesh, pl, run_check=False)
 
 
 def save_arrays(path: str, arrays: dict, extra: dict | None = None) -> None:

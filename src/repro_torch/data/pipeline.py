@@ -11,8 +11,7 @@ and the paper's ratings experiments (a copy of ``repro.data.pipeline``).
   popularity and clustered user tastes.
 
 All three are numpy and give the reference's arrays bit for bit.
-``shard_batch`` (a host batch placed on a device mesh) comes with the
-sharding slice.
+``shard_batch`` places a host batch on a device mesh.
 """
 from __future__ import annotations
 
@@ -20,7 +19,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["TokenPipeline", "synthetic_ratings", "movielens_like_ratings"]
+__all__ = ["TokenPipeline", "synthetic_ratings", "movielens_like_ratings",
+           "shard_batch"]
 
 
 @dataclasses.dataclass
@@ -105,3 +105,24 @@ def movielens_like_ratings(seed: int = 0, n_users: int = 943, n_items: int = 168
     _, first = np.unique(key, return_index=True)
     return rows[first], cols[first], vals[first].astype(np.float32)
 
+
+def shard_batch(batch: np.ndarray, mesh, axis: str = "data"):
+    """Place a host batch onto the mesh, sharded along the batch dim over
+    ``axis`` (replicated over the other axes).  Every rank holds the same
+    host batch, as in the reference, so each keeps its own rows
+    (``DTensor.from_local``) and nothing is sent.  The batch dim must
+    divide by the axis's size."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    n = mesh.size(names.index(axis))
+    x = torch.as_tensor(np.asarray(batch), device=mesh.device_type)
+    if x.shape[0] % n:
+        raise ValueError(f"batch of {x.shape[0]} rows does not split over "
+                         f"the {n} ranks of axis {axis!r}")
+    c = mesh.get_local_rank(axis)
+    rows = x.shape[0] // n
+    pl = [Shard(0) if a == axis else Replicate() for a in names]
+    return DTensor.from_local(x[c * rows:(c + 1) * rows].clone(), mesh, pl,
+                              run_check=False)

@@ -14,7 +14,7 @@ from repro_torch.kernels import gam_score as _gs
 from repro_torch.kernels import tess_project as _tp
 
 __all__ = ["decode_attention", "flash_prefill", "gam_coarse", "gam_retrieve",
-           "gam_score", "tess_project"]
+           "gam_retrieve_pool", "gam_score", "tess_project"]
 
 
 def _on_cpu(t) -> bool:
@@ -46,12 +46,17 @@ def gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, *,
                          f"{meta.n_rows}")
     kappa = int(kappa)
     pool = max(kappa, min(kappa * max(1, int(rerank_factor)), meta.n_pad))
-    if _on_cpu(users):
-        pool_res = _gr.gam_retrieve_q_plain(users, q_tau, q_mask, meta, pool,
-                                            **kw)
-    else:
-        pool_res = _gr.gam_retrieve_q(users, q_tau, q_mask, meta, pool, **kw)
+    pool_res = gam_retrieve_pool(users, q_tau, q_mask, meta, pool, **kw)
     return _gr.rerank_pool(pool_res, users, factors, kappa)
+
+
+def gam_retrieve_pool(users, q_tau, q_mask, meta, pool, **kw):
+    """The int8 kernel's pool alone: the ``pool`` best rows by int8 score
+    under (score desc, row asc), before the exact re-rank."""
+    if _on_cpu(users):
+        return _gr.gam_retrieve_q_plain(users, q_tau, q_mask, meta, pool,
+                                        **kw)
+    return _gr.gam_retrieve_q(users, q_tau, q_mask, meta, pool, **kw)
 
 
 def tess_project(z):

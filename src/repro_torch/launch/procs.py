@@ -49,19 +49,21 @@ def worker_env(base: dict | None = None) -> dict:
 
 
 def init_process_group(coordinator: str, world_size: int, rank: int, *,
-                       timeout_s: float = 300.0) -> None:
-    """Join the gloo process group at ``tcp://{coordinator}`` as ``rank`` of
+                       timeout_s: float = 300.0,
+                       backend: str = "gloo") -> None:
+    """Join the process group at ``tcp://{coordinator}`` as ``rank`` of
     ``world_size`` (the counterpart of ``jax.distributed.initialize``).
 
     ``timeout_s`` bounds the rendezvous and every collective, so a hung or
-    dead peer fails this process instead of waiting forever.  When a card
-    is present, this process's default CUDA device becomes
-    ``rank % device_count``."""
+    dead peer fails this process instead of waiting forever.  ``backend``:
+    gloo by default; a device mesh of ranks sharing one card names gloo
+    for both devices (``"cpu:gloo,cuda:gloo"``).  When a card is present,
+    this process's default CUDA device becomes ``rank % device_count``."""
     import torch
     import torch.distributed as dist
 
     dist.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator}", rank=int(rank),
+        backend, init_method=f"tcp://{coordinator}", rank=int(rank),
         world_size=int(world_size),
         timeout=datetime.timedelta(seconds=float(timeout_s)))
     if torch.cuda.is_available():

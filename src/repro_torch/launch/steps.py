@@ -3,10 +3,12 @@
 Counterpart of ``repro.launch.steps``.  The train step runs ``Model.loss``
 forward and backward under autograd (``torch.autograd.grad`` over every
 parameter leaf) and then the port's ``adamw_update``; nothing is donated,
-so the caller drops the old trees.  ``input_specs`` and the ``abstract_*``
-functions give meta tensors (shape and dtype, nothing allocated), as the
-reference's ``jax.ShapeDtypeStruct`` stand-ins do; the cost analysis will
-trace against them.  The modality frontends are stubs, as in the
+so the caller drops the old trees.  The steps take plain tensors or
+DTensors placed on a device mesh by ``sharding.specs`` alike (on a mesh
+the train step's metrics come back replicated).  ``input_specs`` and the
+``abstract_*`` functions give meta tensors (shape and dtype, nothing
+allocated), as the reference's ``jax.ShapeDtypeStruct`` stand-ins do; the
+cost analysis will trace against them.  The modality frontends are stubs, as in the
 reference: whisper takes mel frames (d_frontend 80), internvl2 ViT patch
 embeddings (d_frontend 3,200).
 """
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.model import Model
+from repro_torch.models.spmd import is_dtensor, replicated_constants
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update, tree_leaves,
                                             tree_map)
@@ -88,17 +91,29 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig()):
 
     def train_step(params, opt_state, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, metrics = model.loss(live, batch)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+        # on a mesh the backward meets the model's plain constants too
+        with replicated_constants(is_dtensor(params["embed"])):
+            loss, metrics = model.loss(live, batch)
+            grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
         grads = tree_map(lambda _: next(grads), params)
         with torch.no_grad():
             params, opt_state, opt_metrics = adamw_update(
                 opt_cfg, grads, opt_state, params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, dict(metrics, **opt_metrics,
-                                       loss=loss.detach())
+        metrics = dict(metrics, **opt_metrics, loss=loss)
+        return params, opt_state, {k: _whole(v.detach())
+                                   for k, v in metrics.items()}
 
     return train_step
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a replicated DTensor on a mesh (a mean over a sharded
+    batch is a pending sum, and reading one rank's share of it would be
+    wrong); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
 def make_prefill_step(model: Model, capacity: int):

@@ -21,6 +21,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rope
+from repro_torch.models.spmd import (decode_on_mesh, heads_on_mesh,
+                                     is_dtensor)
 
 __all__ = ["attn_init", "attention_train", "attention_decode",
            "init_kv_cache", "mla_init", "mla_train", "mla_decode",
@@ -96,7 +98,11 @@ def _blockwise_scores_softmax(q, k, v, *, q_offset, kv_positions, causal,
 def _grouped_attention(q, k, v, cfg: ModelConfig, *, causal=True,
                        window=None):
     """Blockwise attention over query chunks.  q: (B,S,H,hd); k/v
-    (B,S_kv,Hkv,*) with v's width possibly other than hd (MLA)."""
+    (B,S_kv,Hkv,*) with v's width possibly other than hd (MLA).  DTensors
+    (a device mesh) run per rank through ``spmd.heads_on_mesh``."""
+    if is_dtensor(q):
+        return heads_on_mesh(lambda q, k, v: _grouped_attention(
+            q, k, v, cfg, causal=causal, window=window), q, k, v)
     b, sq, h, hd = q.shape
     vd = v.shape[-1]
     hkv = k.shape[2]
@@ -155,32 +161,49 @@ def attention_decode(params, x, cfg: ModelConfig, layer_cache: dict, *,
     Returns (out, layer_cache).  With ``ring=False`` the new K/V goes to slot
     ``wp = min(len, capacity-1)`` and attention covers slots <= wp; with
     ``ring=True`` the cache is a ring of ``capacity`` slots (slot = pos %
-    capacity).  ``len`` stays a device scalar throughout: no host sync."""
+    capacity).  ``len`` stays a device scalar throughout: no host sync.  A
+    DTensor cache (a device mesh) runs through ``spmd.decode_on_mesh``."""
     b = x.shape[0]
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cur = layer_cache["len"]
     q, k, v = _qkv(params, x, cfg)
     pos = cur.reshape(1, 1).expand(b, 1)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
+    if window is None and cfg.attn_kind == "sliding":
+        window = cfg.window
     kc, vc = layer_cache["k"], layer_cache["v"]
+
+    def core(q, k, v, kc, vc, cur):
+        return _decode_step(q, k, v, kc, vc, cur, cfg, window=window,
+                            ring=ring)
+
+    if is_dtensor(kc):
+        out = decode_on_mesh(core, q, k, v, kc, vc, cur, ring=ring,
+                             window=window)
+    else:
+        out = core(q, k, v, kc, vc, cur)
+    return out @ params["wo"], layer_cache
+
+
+def _decode_step(q, k, v, kc, vc, cur, cfg: ModelConfig, *, window, ring):
+    """Write the new K/V rows into kc/vc and attend: q (B, 1, H, hd), k/v
+    (B, 1, Hkv, hd) -> (B, 1, H hd) in q's dtype."""
+    b, _, h, hd = q.shape
+    hkv = kc.shape[2]
     capacity = kc.shape[1]
     wp = cur % capacity if ring else torch.clamp(cur, max=capacity - 1)
     slot = wp.reshape(1).long()
     kc.index_copy_(1, slot, k.to(kc.dtype))
     vc.index_copy_(1, slot, v.to(vc.dtype))
-    if window is None and cfg.attn_kind == "sliding":
-        window = cfg.window
     g = h // hkv
     if cfg.use_decode_kernel and not ring and window is None:
         qk = q[:, 0].reshape(b, hkv, g, hd)
         out = ops.decode_attention(qk, kc, vc, wp)
-        out = out.reshape(b, 1, h * hd) @ params["wo"]
-        return out, layer_cache
+        return out.reshape(b, 1, h * hd)
     qg = q.reshape(b, 1, hkv, g, hd)
     scores = torch.einsum("bqkgd,bskd->bqkgs", qg.float(),
                           kc.float()) * hd ** -0.5
-    slots = torch.arange(capacity, device=x.device)
+    slots = torch.arange(capacity, device=q.device)
     if ring:
         # absolute position held by each slot (<= cur, == slot mod capacity)
         kv_positions = cur - torch.remainder(cur - slots, capacity)
@@ -193,8 +216,7 @@ def attention_decode(params, x, cfg: ModelConfig, layer_cache: dict, *,
     scores = torch.where(mask[None, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqkgs,bskd->bqkgd", probs, vc.float())
-    out = out.to(x.dtype).reshape(b, 1, h * hd) @ params["wo"]
-    return out, layer_cache
+    return out.to(q.dtype).reshape(b, 1, h * hd)
 
 
 # ------------------------------------------ cross-attention (whisper decoder)

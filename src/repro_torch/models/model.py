@@ -25,8 +25,15 @@ attention cache is a ring of min(capacity, local_window) slots, whisper's
 cross K/V hold the encoder's length.  ``decode_step`` writes the new rows
 into the cache it is given and returns it with ``len`` advanced; the cursor
 never leaves the device, so a step makes no host synchronisation.
+
+Parameters, batches and caches may be DTensors placed on a device mesh
+(``sharding.specs``): the methods run the same code, with the few ops
+DTensor cannot place written per rank in ``models/spmd.py``; ``prefill``
+then places its cache on the parameters' mesh, sharded on batch.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -37,11 +44,24 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, norm_init,
                                        torch_dtype, truncated_normal)
+from repro_torch.models.spmd import (embed_on_mesh, is_dtensor, picked,
+                                     replicated_constants, whole_dim)
 from repro_torch.models.transformer import (block_decode, block_prefill,
                                             block_train, layer_params,
                                             mixer_for_layer, stack_init)
 
 __all__ = ["Model"]
+
+
+def _on_mesh(method):
+    """Run a method of :class:`Model` so that, when its parameters are
+    DTensors on a device mesh, the plain tensors it makes itself read as
+    replicated (``spmd.replicated_constants``)."""
+    @functools.wraps(method)
+    def run(self, params, *args, **kw):
+        with replicated_constants(is_dtensor(params["embed"])):
+            return method(self, params, *args, **kw)
+    return run
 
 
 class _MetaGenerator:
@@ -107,9 +127,16 @@ class Model:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def _rows(self, params, tokens) -> torch.Tensor:
+        """The embedding rows of ``tokens``."""
+        tokens = self._tensor(tokens).long()
+        if is_dtensor(params["embed"]):
+            return embed_on_mesh(params["embed"], tokens)
+        return params["embed"][tokens]
+
     def _embed(self, params, batch) -> torch.Tensor:
         """Token embeddings, behind the projected image prefix for vlm."""
-        x = params["embed"][self._tensor(batch["tokens"]).long()]
+        x = self._rows(params, batch["tokens"])
         if self.cfg.family == "vlm":
             proj = params["img_proj"]
             img = self._tensor(batch["image_embeds"]).to(proj.dtype) @ proj
@@ -143,6 +170,7 @@ class Model:
 
     # ------------------------------------------------------------ forward
 
+    @_on_mesh
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence logits (B, S, V_padded) f32 (S counts the image
         prefix for vlm) and the aux loss (the MoE load-balance loss summed
@@ -173,6 +201,7 @@ class Model:
         x = apply_norm(params["final_norm"], x, cfg)
         return self._logits(params, x), aux
 
+    @_on_mesh
     def shifted_logits(self, params, batch):
         """batch['tokens']: (B, S+1) -> (logits (B, S, V_padded) of inputs
         tokens[:, :-1] at the text positions (the image prefix dropped),
@@ -181,12 +210,13 @@ class Model:
         logits, aux = self.forward(params, dict(batch, tokens=tokens[:, :-1]))
         return logits[:, self.n_prefix():, :], tokens[:, 1:], aux
 
+    @_on_mesh
     def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
         """Mean next-token nll over ``shifted_logits``.  Returns (nll + 0.01
         aux, {"nll", "aux", "ppl" = exp(min(nll, 20))})."""
         logits, labels, aux = self.shifted_logits(params, batch)
         logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
+        nll = -picked(logp, labels).mean()
         return nll + 0.01 * aux, {"nll": nll, "aux": aux,
                                   "ppl": torch.exp(torch.clamp(nll, max=20.0))}
 
@@ -228,8 +258,21 @@ class Model:
             cache["cross_v"] = torch.zeros_like(cache["cross_k"])
         return cache
 
+    def _cache_for(self, params, batch: int, capacity: int,
+                   enc_len: int | None = None) -> dict:
+        """A zero cache; with DTensor parameters, placed on their mesh by
+        ``cache_specs`` (sharded on batch), each rank holding its block."""
+        cache = self.init_cache(batch, capacity, enc_len)
+        if not is_dtensor(params["embed"]):
+            return cache
+        from repro_torch.sharding.specs import cache_specs, place
+        mesh = params["embed"].device_mesh
+        return place(cache, cache_specs(self.cfg, mesh, cache,
+                                        seq_shard=False))
+
     # ------------------------------------------------------------ prefill
 
+    @_on_mesh
     def prefill(self, params, batch, capacity: int):
         """Run the prompt (behind the image prefix for vlm; after the encoder
         for encdec) and build the decode cache.  Returns (logits of the last
@@ -242,7 +285,7 @@ class Model:
             raise ValueError(f"{s} prompt positions (image tokens included) "
                              f"exceed capacity {capacity}")
         if cfg.family == "hybrid":
-            cache = self.init_cache(b, capacity)
+            cache = self._cache_for(params, b, capacity)
             groups, gc = params["blocks"], cache["groups"]
             for i in range(self.n_groups):
                 for name in ("rec1", "rec2"):
@@ -258,8 +301,9 @@ class Model:
             enc_out = None
             if cfg.family == "encdec":
                 enc_out = self._encode(params, batch["frames"])
-            cache = self.init_cache(
-                b, capacity, None if enc_out is None else enc_out.shape[1])
+            cache = self._cache_for(
+                params, b, capacity,
+                None if enc_out is None else enc_out.shape[1])
             mixer = mixer_for_layer(cfg, 0)
             layers = {k: v for k, v in cache.items() if k != "len"}
             for i in range(cfg.n_layers):
@@ -268,17 +312,18 @@ class Model:
                                   enc_out=enc_out)
         cache["len"].fill_(s)
         x = apply_norm(params["final_norm"], x, cfg)
-        return self._logits(params, x[:, -1:, :]), cache
+        return whole_dim(self._logits(params, x[:, -1:, :]), -1), cache
 
     # ------------------------------------------------------------ decode
 
+    @_on_mesh
     def decode_step(self, params, cache, tokens, *, return_hidden=False):
         """One token for every sequence.  tokens: (B, 1).  Returns (logits
         (B, 1, V_padded), cache) or, with ``return_hidden=True``, (hidden
         (B, 1, d), cache) for the GAM head.  The cache is updated in place;
         the returned dict holds the same tensors and ``len`` + 1."""
         cfg = self.cfg
-        x = params["embed"][self._tensor(tokens).long()]
+        x = self._rows(params, tokens)
         cur = cache["len"]
 
         def step(x, bp, lc, mixer, **kw):
@@ -310,4 +355,4 @@ class Model:
         x = apply_norm(params["final_norm"], x, cfg)
         if return_hidden:
             return x, new_cache
-        return self._logits(params, x), new_cache
+        return whole_dim(self._logits(params, x), -1), new_cache

@@ -21,7 +21,9 @@ ascending expert order, the order of the reference's scatter-add over the
 sorted pairs.  So bf16 results are the same from run to run.
 
 DeepSeek's shared experts (always on) and the Switch load-balance loss are
-included.
+included.  On a device mesh (DTensor inputs) the layer runs through
+``spmd.moe_on_mesh``: routed alike on every rank, experts split over the
+``model`` axis.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init
+from repro_torch.models.spmd import is_dtensor, moe_on_mesh
 
 __all__ = ["moe_init", "moe_ffn", "route", "Routing"]
 
@@ -128,10 +131,18 @@ def _experts(params: dict, dispatch: torch.Tensor) -> torch.Tensor:
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, d) -> (out (B, S, d), aux loss)."""
+    if is_dtensor(x):
+        return moe_on_mesh(_moe_tokens, _experts, params, x, cfg)
     b, s, d = x.shape
-    t = b * s
+    out, aux = _moe_tokens(params, x.reshape(b * s, d), cfg, _experts)
+    return out.reshape(b, s, d), aux
+
+
+def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig, experts):
+    """The layer on the tokens xt (T, d) with the expert step
+    ``experts(params, dispatch (E, C, d)) -> (E, C, d)``."""
+    t, d = xt.shape
     e, k = cfg.n_experts, cfg.moe_top_k
-    xt = x.reshape(t, d)
     r = route(params, xt, cfg)
     c = r.capacity
     st = torch.div(r.order, k, rounding_mode="floor")            # token
@@ -139,15 +150,15 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
     # scatter the kept pairs into (E, C, d) tiles; every dropped pair
     # writes zeros to the spare row E C, so no slot sees two values
-    rows = torch.where(r.keep[:, None], xt[st], 0).to(x.dtype)
-    dispatch = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
+    rows = torch.where(r.keep[:, None], xt[st], 0).to(xt.dtype)
+    dispatch = torch.zeros((e * c + 1, d), dtype=xt.dtype, device=xt.device)
     dispatch.index_copy_(0, r.slot, rows)
-    ho = _experts(params, dispatch[:-1].reshape(e, c, d)).reshape(e * c, d)
+    ho = experts(params, dispatch[:-1].reshape(e, c, d)).reshape(e * c, d)
 
     # gather back with the gate weights, each pair to its (token, slot)
     gathered = ho[torch.where(r.keep, r.slot, 0)]
     contrib = torch.where(r.keep[:, None],
-                          gathered * sg[:, None].to(x.dtype), 0)
+                          gathered * sg[:, None].to(xt.dtype), 0)
     by_pair = torch.empty_like(contrib)
     by_pair[r.order] = contrib
     by_pair = by_pair.reshape(t, k, d)
@@ -160,4 +171,4 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
     if cfg.n_shared_experts:
         out = out + swiglu(params["shared"], xt)
-    return out.reshape(b, s, d), r.aux
+    return out, r.aux

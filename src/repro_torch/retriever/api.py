@@ -170,9 +170,11 @@ def open_retriever(spec: RetrieverSpec, items: np.ndarray | None = None,
     ``cuda``; raises when no card is present).  With ``items`` the catalog
     is built, with ``snapshot`` restored, with neither left empty.  Extra
     keyword arguments go to the backend (``sharded`` and
-    ``sharded-multihost``: ``clock``, ``tracer``, ``qos``, ``faults``; a
-    ``mesh`` raises).  Inside a ``torch.distributed`` process group the
-    card is this process's current CUDA device, which
+    ``sharded-multihost``: ``clock``, ``tracer``, ``qos``, ``faults``, and
+    ``mesh``, an ``items`` mesh to place the index over; ``sharded-
+    multihost`` checks it and places by host instead).  Inside a
+    ``torch.distributed`` process group the card is this process's current
+    CUDA device, which
     ``launch.procs.init_process_group`` sets to ``rank % device_count``."""
     if items is not None and snapshot is not None:
         raise ValueError("pass either items or snapshot, not both")

@@ -52,8 +52,6 @@ The placement is always re-derived from the opening spec.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
@@ -68,7 +66,8 @@ from repro_torch.service import collective
 from repro_torch.service.collective import HostPlacement, NoLiveReplica
 from repro_torch.service.qos import HealthTracker
 from repro_torch.service.repartition import Partition
-from repro_torch.service.sharded_index import ShardedGamIndex
+from repro_torch.service.sharded_index import (ShardedGamIndex, index_mesh,
+                                               slice_meta)
 
 __all__ = ["MultiHostIndex", "MultiHostShardedRetriever"]
 
@@ -109,23 +108,9 @@ def _slice_index(g: ShardedGamIndex, placement: HostPlacement,
         a, b = row_lo + glo, row_lo + ghi        # global flat rows
         pg = _global_group_of(part, a)
         p_lo, _ = part.group_rows(pg)
-        meta = g.metas[pg]
         o, n = a - p_lo, b - a
         factor_parts.append(g.factors_g[pg][o:o + n])
-        blk = slice(o // meta.bn, (o + n) // meta.bn)
-        repl = dict(
-            item_bits_t=_copy(meta.item_bits_t[:, o:o + n]),
-            block_union=_copy(meta.block_union[blk]),
-            block_spill=_copy(meta.block_spill[blk]),
-            spill8=_copy(meta.spill8[:, o:o + n]),
-            n_rows=n, n_pad=n)
-        if meta.quantize == "int8":
-            # slice boundaries are block-aligned, so the sliced slab and
-            # per-block scales are byte-identical to quantizing the slice
-            # from scratch
-            repl["factors_q"] = _copy(meta.factors_q[o:o + n])
-            repl["scales"] = _copy(meta.scales[:, blk])
-        metas.append(dataclasses.replace(meta, **repl))
+        metas.append(slice_meta(g.metas[pg], o, n))
     flat = (_copy(factor_parts[0]) if len(factor_parts) == 1
             else torch.cat(factor_parts))
     return ShardedGamIndex(
@@ -227,17 +212,11 @@ class MultiHostIndex:
         return self.global_index is not None
 
     # snapshot proxies (parent payload reads these off ``self.base``)
-    @property
-    def tables(self):
-        return self.global_index.tables
+    def whole_arrays(self) -> dict:
+        return self.global_index.whole_arrays()
 
-    @property
-    def counts(self):
-        return self.global_index.counts
-
-    @property
-    def spills(self):
-        return self.global_index.spills
+    def whole_meta_rows(self, g: int) -> int:
+        return self.global_index.whole_meta_rows(g)
 
     @property
     def metas(self):
@@ -398,6 +377,11 @@ class MultiHostShardedRetriever(ShardedRetriever):
                 f"process group has {world} processes — they must match")
         self._local_host = rank if self._distributed else None
         self._down: frozenset[int] = frozenset()
+        # a mesh is checked and then left out: the host placement below
+        # supersedes the mesh's (the reference carves its host slices from
+        # the mesh-placed arrays, which changes no answer), so the base is
+        # built unplaced
+        index_mesh(kw.pop("mesh", None))
         super().__init__(spec, device, **kw)
         # circuit breaker: observed per-host failure streaks (fault fates
         # feed it) auto-mark_down; exponential-backoff probes auto-mark_up.
@@ -422,6 +406,7 @@ class MultiHostShardedRetriever(ShardedRetriever):
     # ------------------------------------------------------------ placement
 
     def _wrap(self, base: ShardedGamIndex) -> MultiHostIndex:
+        """Carve the host's slices out of the globally built base."""
         placement = HostPlacement.from_partition(
             base.partition, self.spec.n_hosts, self.spec.replication)
         return MultiHostIndex.from_global(base, placement,

@@ -4,9 +4,11 @@ Counterpart of ``repro.retriever.sharded``, on one torch device (the card
 unless the caller asks for the CPU): the base segment's posting tables,
 bitsets and factor slabs, the delta and the query batch live there, and
 every query launches ``gam_retrieve`` once per bn-group plus once for a
-non-empty delta.  The reference's ``mesh=`` placement (one index over a
-device mesh) is not ported yet: passing a mesh raises
-:class:`UnsupportedOp` naming its slice.  ``sharded-multihost``
+non-empty delta.  ``mesh=`` (``launch.mesh.make_index_mesh``) places the
+base over the ranks of an ``items`` mesh instead (``ShardedGamIndex``):
+each rank holds and scans its own shards and the ranks merge, so every
+rank, driven alike (SPMD), answers as one device would; the delta and the
+host catalog stay whole on every rank.  ``sharded-multihost``
 (``retriever/multihost.py``) subclasses this backend to place it over host
 processes.
 
@@ -70,7 +72,6 @@ from repro_torch.retriever.api import Retriever, RetrieverSpec
 from repro_torch.retriever.convert import _bits
 from repro_torch.retriever.snapshot import read_snapshot, write_snapshot
 from repro_torch.retriever.types import RetrievalResult, UnsupportedOp
-from repro_torch.service.sharded_index import refuse_mesh
 from repro_torch.service.compaction import CompactionPlanner
 from repro_torch.service.delta import DeltaSegment
 from repro_torch.service.faults import FaultInjected
@@ -79,7 +80,7 @@ from repro_torch.service.microbatch import Microbatcher
 from repro_torch.service.qos import QosPolicy
 from repro_torch.service.repartition import MapCache, Partition, Repartitioner
 from repro_torch.service.result_cache import ResultCache
-from repro_torch.service.sharded_index import ShardedGamIndex
+from repro_torch.service.sharded_index import ShardedGamIndex, index_mesh
 
 __all__ = ["ShardedRetriever"]
 
@@ -94,8 +95,8 @@ class ShardedRetriever(Retriever):
     def __init__(self, spec: RetrieverSpec, device: torch.device, *,
                  mesh=None, clock=time.monotonic, tracer=None, qos=None,
                  faults=None):
-        refuse_mesh(mesh)
         super().__init__(spec, device)
+        self.mesh = index_mesh(mesh)
         self.clock = clock
         # QoS policy: injected, spec-option-driven, or the no-op default;
         # the fault injector is None outside chaos runs
@@ -156,7 +157,7 @@ class ShardedRetriever(Retriever):
         return ShardedGamIndex.build(
             factors, self.spec.cfg, item_ids=ids,
             n_shards=self.spec.n_shards, min_overlap=self.spec.min_overlap,
-            bucket=self.spec.bucket, partition=partition,
+            bucket=self.spec.bucket, mesh=self.mesh, partition=partition,
             premapped=premapped, quantize=self.spec.quantize,
             rerank_factor=self.spec.rerank_factor, device=self.device)
 
@@ -306,7 +307,7 @@ class ShardedRetriever(Retriever):
         self._planner = CompactionPlanner(
             self.spec.cfg, ids, factors, partition=partition,
             n_shards=self.spec.n_shards, bucket=self.spec.bucket,
-            min_overlap=self.spec.min_overlap,
+            min_overlap=self.spec.min_overlap, mesh=self.mesh,
             quantize=self.spec.quantize,
             rerank_factor=self.spec.rerank_factor, device=self.device,
             slice_rows=(int(self.spec.opt("compact_slice_rows", 512))
@@ -767,19 +768,30 @@ class ShardedRetriever(Retriever):
         return out
 
     def snapshot(self, path: str) -> None:
+        """Persist the deployment to ``path``.  On a mesh every rank calls
+        it: the ranks' blocks are gathered, the mesh's first rank writes
+        the file and the others wait for it."""
         arrays, extra = self._snapshot_payload()
-        write_snapshot(path, self.spec, arrays, extra)
+        if self.mesh is None:
+            write_snapshot(path, self.spec, arrays, extra)
+            return
+        import torch.distributed as dist
+        group = self.mesh.get_group("items")
+        if group.rank() == 0:
+            write_snapshot(path, self.spec, arrays, extra)
+        dist.barrier(group=group)
 
     def _snapshot_payload(self) -> tuple[dict, dict]:
         """The (arrays, extra) pair ``snapshot`` persists — split out so the
         multi-host backend can append its placement before writing."""
         cat_ids, cat_fac = self._catalog_arrays()
         base, part = self.base, self.base.partition
+        whole = base.whole_arrays()
         arrays = {
             "catalog_ids": cat_ids, "catalog_factors": cat_fac,
             "base_item_ids": base.item_ids,
-            "base_counts": base.counts.cpu().numpy(),
-            "base_spills": base.spills.cpu().numpy(),
+            "base_counts": whole["counts"],
+            "base_spills": whole["spills"],
             "base_factors": base.flat_factors(),
             "base_alive": base._alive_host,
             "delta_ids": self.delta.ids, "delta_factors": self.delta.factors,
@@ -793,8 +805,8 @@ class ShardedRetriever(Retriever):
             # stream (the per-slot counts are already persisted as
             # base_counts); restore re-densifies shard by shard against
             # each shard's own pad sentinel, bit-identically
-            tables = base.tables.cpu().numpy()
-            counts = base.counts.cpu().numpy().astype(np.int64)
+            tables = whole["tables"]
+            counts = whole["counts"].astype(np.int64)
             post, off = table_to_csr(
                 tables.reshape(-1, tables.shape[-1]), counts.ravel())
             cp = encode_postings(post, off)
@@ -802,20 +814,21 @@ class ShardedRetriever(Retriever):
             extra_base["codec"] = {"n_values": int(cp.n_values),
                                    "bucket": int(tables.shape[-1])}
         else:
-            arrays["base_tables"] = base.tables.cpu().numpy()
+            arrays["base_tables"] = whole["tables"]
         per_group = []
         for g, meta in enumerate(base.metas):
-            arrays[f"meta{g}_item_bits_t"] = _host(meta.item_bits_t).view(
-                np.uint32)
-            arrays[f"meta{g}_block_union"] = _host(meta.block_union).view(
-                np.uint32)
-            arrays[f"meta{g}_block_spill"] = _host(meta.block_spill)
-            arrays[f"meta{g}_spill8"] = _host(meta.spill8)
+            arrays[f"meta{g}_item_bits_t"] = whole[
+                f"meta{g}_item_bits_t"].view(np.uint32)
+            arrays[f"meta{g}_block_union"] = whole[
+                f"meta{g}_block_union"].view(np.uint32)
+            arrays[f"meta{g}_block_spill"] = whole[f"meta{g}_block_spill"]
+            arrays[f"meta{g}_spill8"] = whole[f"meta{g}_spill8"]
             if meta.quantize == "int8":
-                arrays[f"meta{g}_factors_q"] = _host(meta.factors_q)
-                arrays[f"meta{g}_scales"] = _host(meta.scales)
+                arrays[f"meta{g}_factors_q"] = whole[f"meta{g}_factors_q"]
+                arrays[f"meta{g}_scales"] = whole[f"meta{g}_scales"]
+            n = base.whole_meta_rows(g)
             per_group.append({"bn": meta.bn, "words": meta.words,
-                              "n_rows": meta.n_rows, "n_pad": meta.n_pad,
+                              "n_rows": n, "n_pad": n,
                               "quantize": meta.quantize})
         extra = {"base": extra_base,
                  "meta": {"n_groups": len(base.metas),
@@ -828,8 +841,9 @@ class ShardedRetriever(Retriever):
         kill-refreshed block metadata, a non-empty delta, a skew-aware
         partition and the serving generation — without re-deriving
         anything; queries are bit-identical to pre-snapshot.  Restores onto
-        the retriever's device with no compaction in flight (the planner is
-        shadow state a snapshot never contains)."""
+        the retriever's device (whole: a mesh placement is not persisted)
+        with no compaction in flight (the planner is shadow state a snapshot
+        never contains)."""
         arrays, state = read_snapshot(path, self.spec)
         b = state["base"]
         part = Partition(tuple(b["partition"]["lengths"]),

@@ -35,7 +35,8 @@ from repro_torch.kernels.gam_retrieve import TOPK_EMPTY_ROW
 from repro_torch.kernels.gam_score import NEG
 
 __all__ = ["HostPlacement", "NoLiveReplica", "allgather_accumulators",
-           "empty_accumulators", "merge_topk", "process_group"]
+           "allgather_array", "empty_accumulators", "merge_topk",
+           "process_group"]
 
 
 class NoLiveReplica(RuntimeError):
@@ -200,9 +201,26 @@ def process_group() -> tuple[int, int | None]:
     return 1, None
 
 
+def allgather_array(a: np.ndarray, group=None) -> np.ndarray:
+    """(P, *a.shape): every rank's ``a`` (the same shape and dtype on each)
+    in rank order, moved as bytes in one ``all_gather`` of CPU tensors over
+    ``group`` (default: the default group).  One process: ``a[None]``."""
+    import torch.distributed as dist
+
+    a = np.ascontiguousarray(a)
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size(group) == 1:
+        return a[None]
+    mine = torch.from_numpy(a.reshape(-1).view(np.uint8).copy())
+    bufs = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(bufs, mine, group=group)
+    return np.stack([b.numpy().view(a.dtype).reshape(a.shape)
+                     for b in bufs])
+
+
 def allgather_accumulators(scores: np.ndarray, rows: np.ndarray,
                            shard_candidates: np.ndarray,
-                           tile_stats: np.ndarray
+                           tile_stats: np.ndarray, *, group=None
                            ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
                                       np.ndarray]:
     """All-gather per-host accumulators across the process group.
@@ -219,12 +237,15 @@ def allgather_accumulators(scores: np.ndarray, rows: np.ndarray,
     The four payloads travel as one int32 CPU tensor (the f32 ones by their
     bits) in one ``all_gather`` over the group's backend, which must move
     CPU tensors (gloo: NCCL refuses two ranks on one card, and the payload
-    is O(Q * kappa) — about 20 KB a host at Q 256, kappa 10).
+    is O(Q * kappa) — about 20 KB a host at Q 256, kappa 10).  ``group``:
+    a subgroup to gather over (a mesh axis's) instead of the default group.
     """
-    world, _ = process_group()
+    import torch.distributed as dist
+
+    world = (dist.get_world_size(group) if group is not None
+             else process_group()[0])
     if world == 1:
         return scores, rows, shard_candidates, tile_stats
-    import torch.distributed as dist
 
     s = np.ascontiguousarray(scores, np.float32)
     r = np.ascontiguousarray(rows, np.int32)
@@ -233,7 +254,7 @@ def allgather_accumulators(scores: np.ndarray, rows: np.ndarray,
     parts = (s.view(np.int32), r, c, t.view(np.int32))
     mine = torch.from_numpy(np.concatenate([p.ravel() for p in parts]))
     bufs = [torch.empty_like(mine) for _ in range(world)]
-    dist.all_gather(bufs, mine)
+    dist.all_gather(bufs, mine, group=group)
     flat = torch.stack(bufs).numpy()                   # (P, payload)
     cuts = np.cumsum([p.size for p in parts])[:-1]
     g_s, g_r, g_c, g_t = np.split(flat, cuts, axis=1)

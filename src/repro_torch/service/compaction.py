@@ -68,7 +68,7 @@ from repro_torch.service.repartition import Partition
 from repro_torch.service.sharded_index import (ShardedGamIndex,
                                                build_group_meta,
                                                build_shard_segment,
-                                               refuse_mesh)
+                                               index_mesh)
 
 __all__ = ["CompactionPlanner"]
 
@@ -94,7 +94,7 @@ class CompactionPlanner:
                  on_phase=None, quantize: str = "none",
                  rerank_factor: int = 4,
                  device: str | torch.device | None = None):
-        refuse_mesh(mesh)
+        self.mesh = index_mesh(mesh)
         if slice_rows < 1:
             raise ValueError("slice_rows must be >= 1")
         # lifecycle hook: called as on_phase(old, new, stats) on every phase
@@ -235,7 +235,7 @@ class CompactionPlanner:
             self.cfg, self.ids, self.factors, self.partition,
             [t for t, _, _ in self._segs], [c for _, c, _ in self._segs],
             [sp for _, _, sp in self._segs], self._metas,
-            min_overlap=self.min_overlap, bucket=self.bucket,
+            min_overlap=self.min_overlap, bucket=self.bucket, mesh=self.mesh,
             quantize=self.quantize, rerank_factor=self.rerank_factor,
             device=self.device)
         self.phase = "ready"

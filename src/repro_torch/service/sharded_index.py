@@ -28,15 +28,31 @@ sequential f32 fma loop over k whatever the tiling, so any partition
 answers bit-identically to the single-launch layout and to the dense oracle
 :meth:`ShardedGamIndex.query_dense_reference`.
 
-The ``mesh=`` placement of the reference (one index spread over several
-devices) is not ported yet: one device holds the index, and a mesh raises
-:class:`~repro_torch.retriever.types.UnsupportedOp` naming the sharding
-slice.  Spreading the catalog over processes is the ``sharded-multihost``
-backend's placement.
+``mesh=`` (a ``DeviceMesh`` with an ``items`` axis, ``launch.mesh.
+make_index_mesh``) places one index over the mesh's ranks, as the
+reference's ``index_shardings`` places it over devices: a uniform partition
+(one bn-group) whose shards split evenly over the ranks, each rank's run of
+shards holding as many padded rows, gives each rank the
+posting tables, counts, spills, factor rows, alive flags and kernel block
+metadata of its run of whole shards, and nothing else on its device.  A
+query runs ``gam_retrieve`` over the rank's own rows; the ranks' top-kappa
+accumulators are all-gathered (``service.collective``) and merged under
+(score desc, global row asc), and the per-block candidate counts
+concatenated in global order, so every rank answers what one device would,
+bit for bit.  Under ``quantize="int8"`` the ranks' pools are merged into
+the one device's pool first and that pool re-ranked exactly by the rows'
+owners, so the int8 answer is one device's too.  Shards that do not split
+evenly, in count or in rows (a skew-aware repartition), replicate: every
+rank holds the whole index, the sanitizer's rule;
+a heterogeneous partition warns and serves unplaced, as the reference does.
+Every rank must make the same calls (SPMD): queries, mutations, snapshots.
+Spreading the catalog over host processes with replicas and routing is the
+``sharded-multihost`` backend's placement.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -46,29 +62,57 @@ from repro_torch.core.inverted_index import (build_segment,
 from repro_torch.core.mapping import GamConfig, sparse_map
 from repro_torch.device import resolve_device
 from repro_torch.core.retrieval import masked_topk
-from repro_torch.kernels.gam_retrieve import (RetrievalMeta, _or_blocks,
-                                              expand_tile_skips, export_topk,
+from repro_torch.kernels.gam_retrieve import (TOPK_EMPTY_ROW, RetrievalMeta,
+                                              _or_blocks, expand_tile_skips,
+                                              export_topk, fma_dot,
                                               pack_patterns, quantize_meta)
 from repro_torch.kernels.gam_score import NEG
-from repro_torch.kernels.ops import gam_retrieve
+from repro_torch.kernels.ops import gam_retrieve, gam_retrieve_pool
 from repro_torch.obs.tracing import NOOP_TRACER
-from repro_torch.retriever.types import UnsupportedOp
+from repro_torch.service.collective import (allgather_accumulators,
+                                            allgather_array, merge_topk)
 from repro_torch.service.repartition import Partition
 
 __all__ = ["ShardTopK", "ShardedGamIndex", "build_group_meta",
-           "build_shard_segment", "refuse_mesh"]
+           "build_shard_segment", "index_mesh", "slice_meta"]
 
 # table entries gathered per step of the dense oracle (bounds temporaries)
 _MASK_CHUNK = 1 << 24
 
 
-def refuse_mesh(mesh) -> None:
-    """One index lives on one device: a mesh raises."""
-    if mesh is not None:
-        raise UnsupportedOp("sharded", "mesh",
-                            "placing one index over a device mesh comes with "
-                            "the sharding slice (ROADMAP queue 1 item 8, "
-                            "sharding/specs.py)")
+def index_mesh(mesh):
+    """``mesh`` checked as an index mesh: ``None``, or a ``DeviceMesh``
+    with an ``items`` axis (``launch.mesh.make_index_mesh``)."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh with "
+                        f"an 'items' axis (launch.mesh.make_index_mesh), "
+                        f"got {type(mesh).__name__}")
+    if "items" not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"an index mesh needs an 'items' axis, got "
+                         f"{mesh.mesh_dim_names}")
+    return mesh
+
+
+def slice_meta(meta: RetrievalMeta, o: int, n: int) -> RetrievalMeta:
+    """Rows [o, o + n) of ``meta`` (block-aligned), as contiguous copies
+    that share no storage with ``meta`` (so it can be freed).  Block
+    boundaries make the sliced int8 slab and scales byte-identical to
+    quantizing the rows anew."""
+    def copy(t):
+        return t.clone(memory_format=torch.contiguous_format)
+
+    blk = slice(o // meta.bn, (o + n) // meta.bn)
+    repl = dict(item_bits_t=copy(meta.item_bits_t[:, o:o + n]),
+                block_union=copy(meta.block_union[blk]),
+                block_spill=copy(meta.block_spill[blk]),
+                spill8=copy(meta.spill8[:, o:o + n]), n_rows=n, n_pad=n)
+    if meta.quantize == "int8":
+        repl.update(factors_q=copy(meta.factors_q[o:o + n]),
+                    scales=copy(meta.scales[:, blk]))
+    return dataclasses.replace(meta, **repl)
 
 
 @dataclasses.dataclass
@@ -154,7 +198,7 @@ class ShardedGamIndex:
                  bucket: int, mesh=None, metas=None, *,
                  quantize: str = "none", rerank_factor: int = 4,
                  device: str | torch.device | None = None):
-        refuse_mesh(mesh)
+        self.mesh = index_mesh(mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.quantize = quantize
@@ -164,22 +208,30 @@ class ShardedGamIndex:
         def dev(a):
             return torch.as_tensor(a, device=self.device)
 
-        self.tables = dev(tables)         # (S, p, bucket) int32
-        self.counts = dev(counts)         # (S, p) int32
-        self.spills = dev(spills)         # (S, W) int32, padded with caps[s]
         self.partition = partition
+        self._place(partition)
+        s_lo, s_hi, r_lo, r_hi = self.shard_lo, self.shard_hi, \
+            self.row_lo, self.row_hi
+        # on a mesh: this rank's shards only (S_local = S unplaced)
+        self.tables = dev(tables[s_lo:s_hi])    # (S_local, p, bucket) int32
+        self.counts = dev(counts[s_lo:s_hi])    # (S_local, p) int32
+        self.spills = dev(spills[s_lo:s_hi])    # (S_local, W) int32, caps[s]
         self._alive_host = np.array(alive, bool)    # (n_rows,) host mirror
         self.min_overlap = min_overlap
         self.bucket = bucket
         self.metas: list[RetrievalMeta] = list(metas or [])
-        # per-group device slabs: views of one flat factor matrix
-        factors = dev(factors)
-        alive_dev = dev(self._alive_host)
+        if self.placed:
+            glo, _ = partition.group_rows(0)
+            self.metas = [slice_meta(self.metas[0], r_lo - glo,
+                                     r_hi - r_lo)]
+        # per-group device slabs: views of one flat factor matrix (of this
+        # rank's rows on a mesh)
+        factors = dev(factors[r_lo:r_hi])
+        alive_dev = dev(self._alive_host[r_lo:r_hi])
         self.factors_g, self.alive_g = [], []
-        for g in range(len(partition.groups)):
-            lo, hi = partition.group_rows(g)
-            self.factors_g.append(factors[lo:hi])
-            self.alive_g.append(alive_dev[lo:hi])
+        for lo, hi in self._slabs:
+            self.factors_g.append(factors[lo - r_lo:hi - r_lo])
+            self.alive_g.append(alive_dev[lo - r_lo:hi - r_lo])
         # int8 slabs: quantize each group's factor slab against its meta's
         # block width (skipping metas restored with slabs already attached);
         # the f32 slabs stay resident as the exact re-rank store
@@ -196,6 +248,54 @@ class ShardedGamIndex:
         # catalog rank -> shard: the right edges of the shards' rank ranges
         self._rank_ends = np.cumsum(partition.lengths)
 
+    def _place(self, partition: Partition) -> None:
+        """This rank's run of shards and rows: all of them unless a mesh
+        places the index (a uniform partition whose shards split evenly
+        over the mesh's ``items`` ranks, every rank's run of shards holding
+        as many rows: the ranks' blocks are then one shape, as the
+        gathers need)."""
+        n_groups = len(partition.groups)
+        self.placed, self._group = False, None
+        self.shard_lo, self.shard_hi = 0, partition.n_shards
+        if self.mesh is not None and n_groups > 1:
+            # index_shardings partitions the single flat layout only — a
+            # heterogeneous rebalance on a mesh deployment would otherwise
+            # silently drop the item-axis placement, so say it out loud
+            warnings.warn(
+                "heterogeneous partition (multiple bn-groups) is not "
+                "mesh-partitioned yet; serving from local devices — plan "
+                "with a uniform bn to keep item-axis sharding",
+                RuntimeWarning, stacklevel=3)
+        elif self.mesh is not None:
+            ranks = self.mesh.size(self.mesh.mesh_dim_names.index("items"))
+            per, rem = divmod(partition.n_shards, ranks)
+            runs = {sum(partition.caps[r * per:(r + 1) * per])
+                    for r in range(ranks)}
+            if ranks > 1 and not rem and len(runs) == 1:
+                r = self.mesh.get_local_rank("items")
+                self.placed = True
+                self._group = self.mesh.get_group("items")
+                self.shard_lo, self.shard_hi = r * per, (r + 1) * per
+                # each rank's first global row, in rank order
+                self._rank_rows = np.asarray(
+                    [partition.offsets[i * per] for i in range(ranks)])
+        self.row_lo = partition.offsets[self.shard_lo]
+        self.row_hi = (partition.offsets[self.shard_hi - 1]
+                       + partition.caps[self.shard_hi - 1])
+        # each group's global row range, and the part of it held here
+        self._group_rows = [partition.group_rows(g) for g in range(n_groups)]
+        self._slabs = [(max(lo, self.row_lo), min(hi, self.row_hi))
+                       for lo, hi in self._group_rows]
+
+    def _whole(self, a: np.ndarray, axis: int = 0) -> np.ndarray:
+        """Host array of this rank's block of a placed leaf -> the whole
+        array, the ranks' blocks concatenated along ``axis`` (a collective:
+        every rank calls it); unplaced, ``a`` itself."""
+        if not self.placed:
+            return a
+        return np.concatenate(list(allgather_array(a, self._group)),
+                              axis=axis)
+
     # ------------------------------------------------------------- build
 
     @staticmethod
@@ -210,8 +310,8 @@ class ShardedGamIndex:
         """Eager build: the same staged units the background compaction
         planner drives incrementally, run back to back.  ``premapped``:
         optional (tau, mask) aligned with the CALLER's row order, when the
-        phi-mapping was already paid (e.g. by the repartitioner's weights)."""
-        refuse_mesh(mesh)
+        phi-mapping was already paid (e.g. by the repartitioner's weights).
+        ``mesh``: place the index over an ``items`` mesh (module doc)."""
         device = resolve_device(device)
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
@@ -249,7 +349,7 @@ class ShardedGamIndex:
         return ShardedGamIndex.assemble(
             cfg, item_ids, factors, partition,
             [t for t, _, _ in segs], [c for _, c, _ in segs], spill_list,
-            metas, min_overlap=min_overlap, bucket=bucket,
+            metas, min_overlap=min_overlap, bucket=bucket, mesh=mesh,
             quantize=quantize, rerank_factor=rerank_factor, device=device)
 
     @staticmethod
@@ -345,7 +445,7 @@ class ShardedGamIndex:
             return
         self._alive_host[rows_a] = False
         for g, meta in enumerate(self.metas):
-            lo, hi = self.partition.group_rows(g)
+            lo, hi = self._slabs[g]
             sel = rows_a[(rows_a >= lo) & (rows_a < hi)] - lo
             if sel.size == 0:
                 continue
@@ -370,24 +470,50 @@ class ShardedGamIndex:
         rows = np.asarray(rows, np.int64)
         out = np.zeros(rows.shape, np.int64)
         blk_off = 0
-        for g, meta in enumerate(self.metas):
-            lo, hi = self.partition.group_rows(g)
+        for g, (lo, hi) in enumerate(self._group_rows):
+            bn = self.metas[g].bn
             m = (rows >= lo) & (rows < hi)
-            out[m] = blk_off + (rows[m] - lo) // meta.bn
-            blk_off += meta.n_blocks
+            out[m] = blk_off + (rows[m] - lo) // bn
+            blk_off += (hi - lo) // bn
         return out
 
     def total_blocks(self) -> int:
         """Kernel blocks across every bn-group (the block-metrics width)."""
-        return sum(m.n_blocks for m in self.metas)
+        return sum((hi - lo) // self.metas[g].bn
+                   for g, (lo, hi) in enumerate(self._group_rows))
 
     def posting_load(self) -> np.ndarray:
         """(S,) total posting entries per shard — the balance statistic."""
-        return self.counts.sum(dim=-1).cpu().numpy()
+        return self._whole(self.counts.sum(dim=-1).cpu().numpy())
 
     def flat_factors(self) -> np.ndarray:
         """(n_rows, k) host copy of the padded flat factor matrix."""
-        return torch.cat(self.factors_g).cpu().numpy()
+        return self._whole(torch.cat(self.factors_g).cpu().numpy())
+
+    def whole_arrays(self) -> dict:
+        """Host copies of the whole index (every rank's blocks on a mesh):
+        tables, counts, spills, and per group the meta's bitsets, block
+        unions, spill flags and int8 slab — what a snapshot persists."""
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        out = {"tables": self._whole(host(self.tables)),
+               "counts": self._whole(host(self.counts)),
+               "spills": self._whole(host(self.spills))}
+        for g, m in enumerate(self.metas):
+            out[f"meta{g}_item_bits_t"] = self._whole(host(m.item_bits_t), 1)
+            out[f"meta{g}_block_union"] = self._whole(host(m.block_union))
+            out[f"meta{g}_block_spill"] = self._whole(host(m.block_spill))
+            out[f"meta{g}_spill8"] = self._whole(host(m.spill8), 1)
+            if m.quantize == "int8":
+                out[f"meta{g}_factors_q"] = self._whole(host(m.factors_q))
+                out[f"meta{g}_scales"] = self._whole(host(m.scales), 1)
+        return out
+
+    def whole_meta_rows(self, g: int) -> int:
+        """Rows of group ``g``'s whole block metadata (its ``n_rows``)."""
+        lo, hi = self._group_rows[g]
+        return hi - lo
 
     def device_bytes(self) -> dict:
         """Bytes the index holds on its device, by part."""
@@ -440,6 +566,9 @@ class ShardedGamIndex:
         mo = 0 if exact else (self.min_overlap if min_overlap is None
                               else int(min_overlap))
         q = int(users.shape[0])
+        if self.placed:
+            return self._query_placed(users, q_tau, q_mask, kappa, mo,
+                                      tracer, collect_tile_skips)
         results = []
         for g, meta in enumerate(self.metas):
             with tracer.span("gam_retrieve", group=g, bn=meta.bn,
@@ -481,6 +610,90 @@ class ShardedGamIndex:
                          tiles_skipped_frac=skipped / max(tiles, 1),
                          tile_skips=skips)
 
+    def _merge_ranks(self, scores, rows, kappa: int, counts, stats):
+        """Every rank's exported accumulators (``export_topk``), (Q, X)
+        int counts laid at their global columns (zeros elsewhere) and (2,)
+        tile stats -> the merged (scores, rows with -1 in empty slots),
+        the counts and stats summed over the ranks."""
+        cat_s, cat_r, counts, stats = allgather_accumulators(
+            scores, rows, counts, stats, group=self._group)
+        vals, rows = merge_topk(cat_s, cat_r, kappa)
+        rows = np.where(vals <= NEG / 2, -1, rows).astype(np.int32)
+        return vals, rows, counts, stats
+
+    def _query_placed(self, users, q_tau, q_mask, kappa: int, mo: int,
+                      tracer, collect_tile_skips: bool) -> ShardTopK:
+        """:meth:`query` on a mesh: ``gam_retrieve`` over this rank's rows,
+        then the ranks' accumulators merged.  int8: the ranks' pools are
+        merged into the whole index's pool (the same rows one device keeps,
+        under the same order), and the exact score of each pool row comes
+        from the rank that holds it."""
+        meta, factors = self.metas[0], self.factors_g[0]
+        q, nb = int(users.shape[0]), self.total_blocks()
+        b_lo = (self.row_lo - self._group_rows[0][0]) // meta.bn
+        int8 = meta.quantize == "int8"
+        width = (max(kappa, min(kappa * max(1, self.rerank_factor),
+                                self.whole_meta_rows(0)))
+                 if int8 else kappa)
+        with tracer.span("gam_retrieve", group=0, bn=meta.bn,
+                         n_rows=meta.n_rows):
+            if int8:
+                res = gam_retrieve_pool(users, q_tau, q_mask, meta,
+                                        min(width, meta.n_pad),
+                                        min_overlap=mo,
+                                        alive=self.alive_g[0])
+            else:
+                res = gam_retrieve(users, factors, q_tau, q_mask, meta,
+                                   kappa, min_overlap=mo,
+                                   alive=self.alive_g[0])
+        with tracer.span("mesh_merge", ranks=self._group.size()):
+            vals, rows = export_topk(res.vals.cpu().numpy(),
+                                     res.rows.cpu().numpy(),
+                                     offset=self.row_lo)
+            blk = res.blk_counts.cpu().numpy()
+            sk = res.skipped.cpu().numpy()
+            cols = [blk]
+            if collect_tile_skips:
+                cols.append(expand_tile_skips(sk, q))
+            counts = np.zeros((q, len(cols) * nb), np.int32)
+            for i, c in enumerate(cols):
+                counts[:, i * nb + b_lo:i * nb + b_lo + c.shape[1]] = c
+            stats = np.array([sk.sum(), sk.size], np.float32)
+            vals, rows, counts, stats = self._merge_ranks(
+                vals, rows, width, counts, stats)
+            if int8:
+                vals, rows = self._rerank_placed(users, factors, vals, rows,
+                                                 kappa)
+        blk = counts[:, :nb].astype(np.int64)
+        return ShardTopK(scores=vals.astype(np.float32), rows=rows,
+                         shard_candidates=self._shard_candidates(blk),
+                         block_candidates=blk,
+                         tiles_skipped_frac=float(stats[0] / max(stats[1],
+                                                                 1)),
+                         tile_skips=(counts[:, nb:] != 0
+                                     if collect_tile_skips else None))
+
+    def _rerank_placed(self, users, factors, pool_vals, pool_rows,
+                       kappa: int):
+        """Exact f32 re-rank of the merged pool (``rerank_pool``'s order):
+        each rank scores the pool rows it holds with the kernels' fma
+        arithmetic, the owner's score is kept, and the top kappa taken
+        under (score desc, row asc)."""
+        valid = pool_rows >= 0
+        mine = valid & (pool_rows >= self.row_lo) & (pool_rows < self.row_hi)
+        local = torch.as_tensor(np.where(mine, pool_rows - self.row_lo, 0),
+                                device=factors.device).long()
+        ex = fma_dot(users[:, None, :], factors[local]).cpu().numpy()
+        ex = np.where(mine, ex, np.float32(NEG))
+        owner = np.where(valid, np.searchsorted(self._rank_rows, pool_rows,
+                                                side="right") - 1, 0)
+        per_rank = allgather_array(ex.astype(np.float32), self._group)
+        ex = np.take_along_axis(per_rank, owner[None], axis=0)[0]
+        ex = np.where(valid, ex, np.float32(NEG))
+        key = np.where(valid, pool_rows, int(TOPK_EMPTY_ROW)).astype(np.int32)
+        vals, rows = merge_topk(ex, key, kappa)
+        return vals, np.where(vals <= NEG / 2, -1, rows).astype(np.int32)
+
     def query_dense_reference(self, users: torch.Tensor, q_tau: torch.Tensor,
                               q_mask: torch.Tensor, kappa: int, *,
                               exact: bool = False) -> ShardTopK:
@@ -490,22 +703,27 @@ class ShardedGamIndex:
         scoring (``masked_topk`` on the ``gam_score`` kernel), one top-kappa
         over the whole flat row space with ties broken by ascending global
         row — the same total order the fused accumulator realises.  Works
-        on any partition; the masks are computed a few queries at a time."""
+        on any partition; the masks are computed a few queries at a time.
+        On a mesh each rank scores its own shards and the ranks' top-kappas
+        are merged."""
         q = int(users.shape[0])
         dev = self.device
-        alive = torch.as_tensor(self._alive_host, device=dev)
+        part = self.partition
+        alive = torch.as_tensor(self._alive_host[self.row_lo:self.row_hi],
+                                device=dev)
         if exact:
-            masks = alive[None, :].expand(q, self.partition.n_rows)
+            masks = alive[None, :].expand(q, alive.shape[0])
         else:
             k = q_tau.shape[1]
             step = max(1, _MASK_CHUNK // max(1, k * self.tables.shape[-1]))
             cols = []
-            for s in range(self.n_shards):
-                cap = self.partition.caps[s]
+            for s in range(self.shard_lo, self.shard_hi):
+                cap = part.caps[s]
                 col = torch.empty((q, cap), dtype=torch.bool, device=dev)
                 for i in range(0, q, step):
                     col[i:i + step] = candidate_mask_from_table(
-                        self.tables[s], self.spills[s], q_tau[i:i + step],
+                        self.tables[s - self.shard_lo],
+                        self.spills[s - self.shard_lo], q_tau[i:i + step],
                         q_mask[i:i + step], sentinel=cap,
                         min_overlap=self.min_overlap)
                 cols.append(col)
@@ -514,11 +732,16 @@ class ShardedGamIndex:
         vals, rows = masked_topk(users, flat, masks.contiguous(), kappa)
         vals = vals.cpu().numpy().astype(np.float32)
         rows = np.where(vals <= NEG / 2, -1, rows.cpu().numpy())
-        part = self.partition
-        shard_cand = np.stack(
-            [masks[:, part.offsets[s]:part.offsets[s] + part.caps[s]]
-             .sum(dim=1).cpu().numpy() for s in range(self.n_shards)],
-            axis=1)
+        shard_cand = np.zeros((q, part.n_shards), np.int64)
+        for s in range(self.shard_lo, self.shard_hi):
+            lo = part.offsets[s] - self.row_lo
+            shard_cand[:, s] = masks[:, lo:lo + part.caps[s]].sum(
+                dim=1).cpu().numpy()
+        if self.placed:
+            vals, rows = export_topk(vals, rows, offset=self.row_lo)
+            vals, rows, shard_cand, _ = self._merge_ranks(
+                vals, rows, kappa, shard_cand.astype(np.int32),
+                np.zeros(2, np.float32))
         return ShardTopK(scores=vals, rows=rows.astype(np.int32),
                          shard_candidates=shard_cand)
 

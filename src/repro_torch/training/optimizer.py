@@ -78,17 +78,32 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 def adamw_init(params: Tree) -> AdamWState:
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    """Zero moments shaped (and, for DTensor params, placed) like the
+    params; a () int32 step, replicated over the params' mesh."""
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     leaf = tree_leaves(params)[0]
-    return AdamWState(step=torch.zeros((), dtype=torch.int32,
-                                       device=leaf.device),
-                      mu=zeros, nu=tree_map(torch.clone, zeros))
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    if hasattr(leaf, "device_mesh"):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = leaf.device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return AdamWState(step=step, mu=zeros, nu=tree_map(torch.clone, zeros))
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements, so the moments and
+    the new parameter keep the share of the parameter's own spec."""
+    if hasattr(p, "device_mesh") and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
                  params: Tree) -> tuple[Tree, AdamWState, dict]:
     """One AdamW step.  Returns (new_params, new_state, metrics)."""
+    grads = tree_map(_as_param, grads, params)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)

@@ -22,7 +22,7 @@ from repro.training.optimizer import AdamWState as JAdamWState  # noqa: E402
 from repro.training.optimizer import adamw_init as jadamw_init  # noqa: E402
 from repro_torch.checkpoint import (restore_checkpoint,  # noqa: E402
                                     save_checkpoint, tree_paths)
-from repro_torch.checkpoint.checkpoint import _flatten  # noqa: E402
+from repro_torch.checkpoint.checkpoint import tree_flatten_with_path as _flatten  # noqa: E402
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.launch.steps import abstract_params  # noqa: E402
 from repro_torch.models import Model  # noqa: E402

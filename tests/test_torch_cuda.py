@@ -229,6 +229,39 @@ def test_gam_retrieve_kernel_equals_plain(dev, n, q, kappa, mo, bucket, bn, bq):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("ranks,quantize", [(2, "none"), (4, "none"),
+                                             (2, "int8")])
+def test_gam_retrieve_over_a_ranks_rows_equals_plain(dev, ranks, quantize):
+    """What each rank of an ``items`` mesh launches: the kernel over its
+    own shards' rows (``slice_meta`` of the index, as the placement cuts
+    it) against its plain version."""
+    from repro_torch.service.sharded_index import ShardedGamIndex, slice_meta
+    items = unit_factors(6000, 16, 3)
+    users = torch.from_numpy(unit_factors(70, 16, 4)).to(dev)
+    idx = ShardedGamIndex.build(items, CFG, n_shards=8, min_overlap=2,
+                                bucket=512, quantize=quantize, device=dev)
+    q_tau, q_vals = sparse_map(users, CFG)
+    meta, factors = idx.metas[0], idx.factors_g[0]
+    span = meta.n_rows // ranks
+    for r in range(ranks):
+        local = slice_meta(meta, r * span, span)
+        rows = factors[r * span:(r + 1) * span].contiguous()
+        alive = idx.alive_g[0][r * span:(r + 1) * span].contiguous()
+        if quantize == "int8":
+            args = (users, q_tau, q_vals != 0, local, 40)
+            got = gr.gam_retrieve_q(*args, min_overlap=2, alive=alive)
+            want = gr.gam_retrieve_q_plain(*args, min_overlap=2, alive=alive)
+        else:
+            args = (users, rows, q_tau, q_vals != 0, local, 10)
+            got = gr.gam_retrieve(*args, min_overlap=2, alive=alive)
+            want = gr.gam_retrieve_plain(*args, min_overlap=2, alive=alive)
+        torch.cuda.synchronize()
+        assert torch.equal(got.rows, want.rows), r
+        assert torch.equal(got.blk_counts, want.blk_counts), r
+        assert torch.equal(got.skipped, want.skipped), r
+        assert _max_ulp(got.vals, want.vals) <= 4, r
+
+
 # past the shared-memory fast path: kappa-lists and/or query rows in global
 # memory (kappa > GAM_RETRIEVE_SMEM_KAPPA, k > GAM_RETRIEVE_SMEM_K)
 WIDE_CASES = [

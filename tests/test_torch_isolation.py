@@ -14,6 +14,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "examples").glob("*_torch.py")) + [
     ROOT / "chip_smoke.py",
+    ROOT / "tests" / "multihost" / "run_mesh_torch.py",
     ROOT / "tests" / "multihost" / "run_multiprocess_torch.py"]
 REFERENCE_PACKAGES = sorted(
     p.parent.name for p in (ROOT / "src" / "repro").glob("*/__init__.py"))
@@ -35,6 +36,7 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.retriever.sharded, repro_torch.service\n"
             "import repro_torch.obs, repro_torch.online, repro_torch.data\n"
             "import repro_torch.factorization.convert, repro_torch.training\n"
+            "import repro_torch.sharding.specs, repro_torch.launch.mesh\n"
             "import repro_torch.configs.gam_mf\n"
             "import repro_torch.models.moe, repro_torch.models.ssm\n"
             "import repro_torch.models.rglru, repro_torch.models.model\n"

@@ -222,8 +222,8 @@ def test_unsupported_settings_raise_typed_errors():
                             items=unit_factors(10, 16, 0), device="cpu")
     with pytest.raises(tr.UnsupportedOp, match="explain|provenance"):
         lsh.query(unit_factors(2, 16, 1), explain=True)
-    # one index lives on one device: a device mesh names its slice
-    with pytest.raises(tr.UnsupportedOp, match="item 8"):
+    # a mesh must be a DeviceMesh: anything else says what is expected
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tr.open_retriever(tr.RetrieverSpec(cfg=cfg, backend="sharded"),
                           device="cpu", mesh=object())
     with pytest.raises(KeyError, match="unknown"):

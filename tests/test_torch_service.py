@@ -580,9 +580,9 @@ def test_microbatcher_matches_reference_under_an_injected_clock():
 
 def test_sharded_specs_the_port_refuses():
     spec = tr.RetrieverSpec(cfg=TCFG, backend="sharded")
-    with pytest.raises(tr.UnsupportedOp, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tr.open_retriever(spec, device="cpu", mesh="mesh")
-    with pytest.raises(tr.UnsupportedOp, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tr.open_retriever(tr.RetrieverSpec(cfg=TCFG,
                                            backend="sharded-multihost"),
                           device="cpu", mesh="mesh")
