@@ -303,6 +303,26 @@ Phases, each of which fails the run if it fails:
    against its plain version and SDPA on the rank's sequences; at f32 on
    2 layers, d 256, the sharded prefill and 31 decode steps give one
    device's tokens at every step, every cache leaf within 1e-5.
+13. The cost analysis.  13a: ``python -m repro_torch.launch.dryrun``
+   (tinyllama-1.1b ``train_4k`` and ``decode_32k`` on the 16 x 16 mesh,
+   ``decode_32k`` with ``--multi-pod``), ``... launch.roofline`` (``train_4k``)
+   and ``... launch.perf`` (olmoe-1b-7b ``decode_32k``, baseline, cap10,
+   baseline+mesh1), processes on the host started together (meta tensors
+   over a fake group; no card): each must exit 0 with every record of
+   status ``ok``, printed.  13b: tinyllama-1.1b at its published widths in
+   bf16, phase 5's decode step (batch 8, capacity 1,064, after a
+   1,024-token prefill, ``decode_attention`` launched 22 times, counted
+   from 0 around it) and phase 11a's train step (at 11a's size) are each
+   counted once on meta tensors and once on the card's: flops by unit,
+   bytes and kernel entries must be equal, and the counted argument bytes
+   equal the tensors' bytes.  Each step is timed uncounted (p50, CUDA
+   events) against its roofline bound on one card (the larger of the
+   compute and memory terms of ``launch/roofline.py``); a share above
+   1.05 fails (the count left out work).  The counted peak is printed
+   beside ``torch.cuda.max_memory_allocated``, every figure with the
+   card's name and power limit; ``decode_attention`` is held to its plain
+   version and timed at this step's layout (the
+   ``decode_attention@cost13b`` row).
 Then the ``kernels`` JSON line (every kernel, at each shape above), the
 card's name and power limit, and the result line.
 
@@ -4322,6 +4342,257 @@ def phase_mesh(torch, report, parts="12a,12b,12c"):
     return rows
 
 
+# ------------------------------------------------- 13. cost analysis
+
+COST_CLI_TIMEOUT = 100         # s: each 13a process (they run together)
+COST_DECODE_CALLS = 10         # timed decode steps (one warm-up first)
+COST_TRAIN_CALLS = 3           # timed train steps (one warm-up first)
+COST_SHARE_MAX = 1.05          # roofline share past this: work left out
+COST_PREFILL = 1024            # phase 5's prompt before the timed steps
+COST_CLIS = (
+    ("dryrun", ["--arch", LM_ARCH, "--shape", "train_4k"]),
+    ("dryrun", ["--arch", LM_ARCH, "--shape", "decode_32k"]),
+    ("dryrun", ["--arch", LM_ARCH, "--shape", "decode_32k", "--multi-pod"]),
+    ("roofline", ["--arch", LM_ARCH, "--shape", "train_4k"]),
+    ("perf", ["--arch", "olmoe-1b-7b", "--shape", "decode_32k",
+              "--variants", "baseline,cap10,baseline+mesh1"]))
+
+
+def cost_clis() -> list:
+    """13a: the three cost CLIs as processes on the host (meta tensors over
+    a fake 256- or 512-rank group; no card), started together.  Each must
+    exit 0 and write only records of status ``ok``; returns them."""
+    import shutil
+    out_dir = ROOT / "build" / "phase13"
+    shutil.rmtree(out_dir, ignore_errors=True)     # the CLIs skip cached
+    out_dir.mkdir(parents=True)
+    runs = []
+    for i, (mod, args) in enumerate(COST_CLIS):
+        out = out_dir / f"{i}_{mod}.json"
+        runs.append((mod, args, out, run_python(
+            ["-m", f"repro_torch.launch.{mod}", *args, "--out", str(out)],
+            f"13a {mod}", COST_CLI_TIMEOUT)))
+    records = []
+    for mod, args, out, wait in runs:
+        wait()
+        recs = json.loads(out.read_text())
+        fail_unless(recs and all(r.get("status") == "ok" for r in recs),
+                    f"13a {mod} {' '.join(args)}: records not all ok: "
+                    f"{recs}")
+        for r in recs:
+            print(f"13a {mod} record: {json.dumps(r)}")
+        records += [dict(r, cli=mod) for r in recs]
+    return records
+
+
+def counted(torch, fn, args) -> dict:
+    """One call of ``fn(*args)`` under a fresh cost counter: its record
+    (flops by unit, bytes, memory, kernel entries)."""
+    from repro_torch.launch.dryrun import Lowered
+    return Lowered(fn, args).count().record()
+
+
+def same_count(a: dict, b: dict, what: str) -> None:
+    """The meta count ``a`` and the card's ``b`` must agree exactly."""
+    fail_unless(a["flops"] == b["flops"], f"13b {what}: flops by unit on "
+                f"meta {a['flops']} != on the card {b['flops']}")
+    fail_unless(a["bytes_accessed"] == b["bytes_accessed"],
+                f"13b {what}: bytes on meta {a['bytes_accessed']} != on the "
+                f"card {b['bytes_accessed']}")
+    fail_unless(a["kernels"] == b["kernels"], f"13b {what}: kernel entries "
+                f"on meta {a['kernels']} != on the card {b['kernels']}")
+
+
+def step_share(torch, rec: dict, ms: float, what: str, smi: str) -> dict:
+    """The roofline bound of one card (max of the compute and memory
+    terms) against the measured p50; fails past COST_SHARE_MAX."""
+    from repro_torch.launch.roofline import HBM_BW, compute_seconds
+    t_c = compute_seconds(rec["flops"]) * 1e3
+    t_m = rec["bytes_accessed"] / HBM_BW * 1e3
+    bound = max(t_c, t_m)
+    share = bound / ms
+    by = "compute" if t_c >= t_m else "memory"
+    print(f"13b {what}: bound {bound:.4f} ms ({by}; compute {t_c:.4f} ms, "
+          f"memory {t_m:.4f} ms), measured p50 "
+          f"{ms:.4f} ms, share {share:.4f} [{smi}]")
+    fail_unless(share <= COST_SHARE_MAX, f"13b {what}: roofline share "
+                f"{share:.4f} > {COST_SHARE_MAX}: the count left out work")
+    return {"bound_ms": bound, "compute_ms": t_c, "memory_ms": t_m,
+            "p50_ms": ms, "share": share}
+
+
+def event_p50(torch, fn, calls: int) -> float:
+    """p50 of ``calls`` calls of ``fn`` (CUDA events), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(calls):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return float(np.percentile(ms, 50))
+
+
+def meta_like(torch, tree):
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def cost_decode(torch, smi: str) -> tuple[dict, dict]:
+    """13b decode: phase 5's step (tinyllama-1.1b, bf16, batch 8, capacity
+    LM_CAPACITY, decode_attention) counted on meta and on the card, timed
+    uncounted.  Returns (its record, the kernels-line row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import Model
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH).with_(use_decode_kernel=True)
+    step = make_serve_step(Model(cfg))
+    meta_model = Model(cfg, device="meta")
+    on_meta = counted(torch, make_serve_step(meta_model), (
+        meta_model.init(0), meta_model.init_cache(LM_BATCH, LM_CAPACITY),
+        torch.empty((LM_BATCH, 1), dtype=torch.int32, device="meta")))
+    model = Model(cfg)
+    params = model.init(0)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, COST_PREFILL)), device=dev)
+    logits, cache = model.prefill(params, {"tokens": prompts}, LM_CAPACITY)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    real = sum(t.numel() * t.element_size()
+               for t in leaves(params) + leaves(cache) + [tok])
+    da.decode_attention.launches = 0
+    on_card = counted(torch, step, (params, cache, tok))
+    launches = da.decode_attention.launches
+    fail_unless(launches == cfg.n_layers, f"13b decode: decode_attention "
+                f"launched {launches} times in the counted step, not "
+                f"{cfg.n_layers}")
+    same_count(on_meta, on_card, "decode")
+    fail_unless(on_card["memory"]["argument"] == real
+                and on_meta["memory"]["argument"] == real,
+                f"13b decode: counted argument bytes {on_meta['memory']} / "
+                f"{on_card['memory']} != the tensors' {real}")
+    state = {"cache": cache, "tok": tok}
+
+    def one():
+        state["tok"], state["cache"] = step(params, state["cache"],
+                                            state["tok"])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = event_p50(torch, one, COST_DECODE_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"count": on_card, "argument_bytes_real": real,
+           "launches": launches,
+           "max_memory_allocated": peak, "allocated_before": base,
+           **step_share(torch, on_card, ms, "decode step (batch 8, capacity "
+                        f"{LM_CAPACITY}, decode_attention)", smi)}
+    print(f"13b decode: counted on meta = on the card: flops "
+          f"{on_card['flops']}, bytes {on_card['bytes_accessed']}, kernel "
+          f"entries {on_card['kernels']}; argument bytes "
+          f"{on_card['memory']['argument']} = the tensors'; counted peak "
+          f"{on_card['memory']['peak']} bytes beside "
+          f"torch.cuda.max_memory_allocated {peak} (what the process held "
+          f"before the step: {base}) [{smi}]")
+    # the kernel at this step's shape, held to its plain version
+    kc = state["cache"]["k"][0].contiguous()
+    vc = state["cache"]["v"][0].contiguous()
+    b, s, hkv, hd = kc.shape
+    q = torch.randn((b, hkv, cfg.n_heads // hkv, hd), device=dev,
+                    generator=torch.Generator(dev).manual_seed(13),
+                    dtype=torch.bfloat16)
+    length = state["cache"]["len"] - 1
+    row, _ = decode_row(torch, "decode_attention@cost13b", q, kc, vc, length,
+                        launches, 20, graphed=True)
+    del params, cache, state, kc, vc
+    return rec, row
+
+
+def cost_train(torch, report, smi: str) -> dict:
+    """13b train: phase 11a's step (tinyllama-1.1b, bf16, at 11a's size)
+    counted on meta and on the card, timed uncounted."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_batch
+    from repro_torch.models import Model
+    from repro_torch.training import adamw_init
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg)
+    step = make_train_step(model)
+    a = report.get("training", {}).get("11a", {})
+    b, s = ((a["batch"], a["seq"]) if "batch" in a
+            else train_size(torch, model, step, cfg))
+    batch = build_batch(cfg, TokenPipeline(vocab=cfg.vocab, seq_len=s,
+                                           batch=b, seed=0).batch_at(0),
+                        np.random.default_rng(0))
+    meta_model = Model(cfg, device="meta")
+    meta_params = meta_model.init(0)
+    on_meta = counted(torch, make_train_step(meta_model), (
+        meta_params, adamw_init(meta_params), meta_like(torch, batch)))
+    del meta_params
+    params = model.init(0)
+    opt = adamw_init(params)
+    real = sum(t.numel() * t.element_size()
+               for t in leaves(params) + list(leaves(opt.mu))
+               + list(leaves(opt.nu)) + [opt.step] + leaves(batch))
+    on_card = counted(torch, step, (params, opt, batch))
+    same_count(on_meta, on_card, "train")
+    fail_unless(on_card["memory"]["argument"] == real
+                and on_meta["memory"]["argument"] == real,
+                f"13b train: counted argument bytes {on_meta['memory']} / "
+                f"{on_card['memory']} != the tensors' {real}")
+    state = {"params": params, "opt": opt}
+    del params, opt
+
+    def one():
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = event_p50(torch, one, COST_TRAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"batch": b, "seq": s, "count": on_card,
+           "argument_bytes_real": real, "max_memory_allocated": peak,
+           "allocated_before": base,
+           **step_share(torch, on_card, ms, f"train step ({b} x {s})", smi)}
+    print(f"13b train ({b} x {s}): counted on meta = on the card: flops "
+          f"{on_card['flops']}, bytes {on_card['bytes_accessed']}; argument "
+          f"bytes {on_card['memory']['argument']} = the tensors'; counted "
+          f"peak {on_card['memory']['peak']} bytes (nothing donated: the "
+          f"old params and moments beside the new) beside "
+          f"torch.cuda.max_memory_allocated {peak} (held before the step: "
+          f"{base}) [{smi}]")
+    del state, batch
+    return rec
+
+
+def phase_cost(torch, report):
+    """Phase 13: the cost analysis.  13a the three CLIs on the host; 13b
+    tinyllama's decode and train steps counted on meta and on the card
+    (equal), timed uncounted against the count's roofline bound."""
+    import gc
+    t0 = time.perf_counter()
+    out: dict = {"13a": cost_clis()}
+    t1 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = card_name_and_limit()
+    out["decode"], row = cost_decode(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = cost_train(torch, report, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["nvidia_smi"] = smi
+    out["seconds"] = {"13a": t1 - t0, "13b": time.perf_counter() - t1}
+    report["cost"] = out
+    print(f"13: seconds 13a {out['seconds']['13a']:.1f}, 13b "
+          f"{out['seconds']['13b']:.1f}")
+    return [row]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4879,6 +5150,10 @@ def main() -> int:
     # --------------------------------------- 12. over a device mesh
     kernels += phase_mesh(torch, report)
     lap("12")
+
+    # ------------------------------------------- 13. cost analysis
+    kernels += phase_cost(torch, report)
+    lap("13")
     report["phase_s"] = phase_s
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))

@@ -2,10 +2,14 @@
 
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
 to the hand-written kernel, or the call raises.  There is no fallback from
-the kernel to the plain version.  Counterpart of ``repro.kernels.ops``.
+the kernel to the plain version.  A meta tensor (shapes only, for the cost
+analysis) gets meta outputs and launches nothing.  Under a cost counter
+each entry is charged its kernel's work (``kernels.cost``).  Counterpart
+of ``repro.kernels.ops``.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import gam_coarse as _gc
@@ -23,6 +27,10 @@ def _on_cpu(t) -> bool:
 
 def gam_score(u, v, mask):
     """where(mask, u @ v.T, NEG) as (Q, N) f32."""
+    return _cost.run("gam_score", _gam_score, u, v, mask)
+
+
+def _gam_score(u, v, mask):
     if _on_cpu(u):
         return _gs.gam_score_plain(u, v, mask)
     return _gs.gam_score(u, v, mask)
@@ -36,11 +44,8 @@ def gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, *,
     ``kappa * rerank_factor`` rows (at least kappa, at most n_pad), which is
     re-ranked against the exact f32 ``factors`` rows."""
     if meta.quantize != "int8":
-        if _on_cpu(users):
-            return _gr.gam_retrieve_plain(users, factors, q_tau, q_mask, meta,
-                                          kappa, **kw)
-        return _gr.gam_retrieve(users, factors, q_tau, q_mask, meta, kappa,
-                                **kw)
+        return _cost.run("gam_retrieve", _gam_retrieve, users, factors,
+                         q_tau, q_mask, meta, kappa, **kw)
     if factors.shape[0] != meta.n_rows:
         raise ValueError(f"factors rows {factors.shape[0]} != meta.n_rows "
                          f"{meta.n_rows}")
@@ -50,9 +55,21 @@ def gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, *,
     return _gr.rerank_pool(pool_res, users, factors, kappa)
 
 
+def _gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, **kw):
+    if _on_cpu(users):
+        return _gr.gam_retrieve_plain(users, factors, q_tau, q_mask, meta,
+                                      kappa, **kw)
+    return _gr.gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, **kw)
+
+
 def gam_retrieve_pool(users, q_tau, q_mask, meta, pool, **kw):
     """The int8 kernel's pool alone: the ``pool`` best rows by int8 score
     under (score desc, row asc), before the exact re-rank."""
+    return _cost.run("gam_retrieve_pool", _gam_retrieve_pool, users, q_tau,
+                     q_mask, meta, pool, **kw)
+
+
+def _gam_retrieve_pool(users, q_tau, q_mask, meta, pool, **kw):
     if _on_cpu(users):
         return _gr.gam_retrieve_q_plain(users, q_tau, q_mask, meta, pool,
                                         **kw)
@@ -61,6 +78,10 @@ def gam_retrieve_pool(users, q_tau, q_mask, meta, pool, **kw):
 
 def tess_project(z):
     """Algorithm 2 per row: (pattern int8, a f32)."""
+    return _cost.run("tess_project", _tess_project, z)
+
+
+def _tess_project(z):
     if _on_cpu(z):
         return _tp.tess_project_plain(z)
     return _tp.tess_project(z)
@@ -68,6 +89,10 @@ def tess_project(z):
 
 def decode_attention(q, k, v, length):
     """One-token GQA attention over positions <= length: (B, Hkv, G, hd)."""
+    return _cost.run("decode_attention", _decode_attention, q, k, v, length)
+
+
+def _decode_attention(q, k, v, length):
     if _on_cpu(q):
         return _da.decode_attention_plain(q, k, v, length)
     return _da.decode_attention(q, k, v, length)
@@ -75,6 +100,10 @@ def decode_attention(q, k, v, length):
 
 def gam_coarse(h, patterns, inv_sqrt_nnz):
     """(h (B, d) @ patterns (d, V) int8) * inv_sqrt_nnz (V,) as (B, V) f32."""
+    return _cost.run("gam_coarse", _gam_coarse, h, patterns, inv_sqrt_nnz)
+
+
+def _gam_coarse(h, patterns, inv_sqrt_nnz):
     if _on_cpu(h):
         return _gc.gam_coarse_plain(h, patterns, inv_sqrt_nnz)
     return _gc.gam_coarse(h, patterns, inv_sqrt_nnz)
@@ -83,6 +112,10 @@ def gam_coarse(h, patterns, inv_sqrt_nnz):
 def flash_prefill(q, k, v):
     """Causal GQA attention: q (B, S, Hkv, G, hd), k/v (B, S, Hkv, hd) ->
     shaped and typed like q."""
+    return _cost.run("flash_prefill", _flash_prefill, q, k, v)
+
+
+def _flash_prefill(q, k, v):
     if _on_cpu(q):
         return _fp.flash_prefill_plain(q, k, v)
     return _fp.flash_prefill(q, k, v)

@@ -13,14 +13,22 @@ runs DTensor's all-gather and reduce-scatter through host memory
 sizes, no devices), the counterpart of ``jax.sharding.AbstractMesh``: the
 spec functions of ``sharding.specs`` read nothing else of a mesh, so they
 take either.
+
+:func:`fake_mesh` and :func:`abstract_production_mesh` build a mesh of
+any size in one process for the cost analysis: a ``"fake"`` group (every
+collective returns at once, moving nothing) at rank 0, created inside the
+``with`` and destroyed at its end.  DTensors of meta tensors on it run a
+step's per-rank program without a device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 __all__ = ["MeshShape", "make_mesh", "make_production_mesh",
            "make_index_mesh", "data_axes", "model_axis", "mesh_axes",
-           "stage_collectives", "STAGED"]
+           "stage_collectives", "STAGED", "fake_mesh",
+           "abstract_production_mesh", "production_shape"]
 
 # Collectives this process runs through host memory, by name: calls, bytes
 # moved and seconds (see stage_collectives).
@@ -207,13 +215,57 @@ def make_mesh(shape: tuple[int, ...], names: tuple[str, ...],
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
+def production_shape(multi_pod: bool = False):
+    """The production mesh's shape and axis names: 16 x 16 ("data",
+    "model"), or 2 x 16 x 16 ("pod", "data", "model")."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """16 x 16 = 256 ranks ("data", "model"); two pods = 512 ranks
     ("pod", "data", "model")."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device_type)
+    return make_mesh(*production_shape(multi_pod), device_type)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: tuple[int, ...], names: tuple[str, ...]):
+    """A cpu-typed mesh of ``shape`` over a ``"fake"`` process group of as
+    many ranks, this process rank 0, for tracing (the cost analysis): the
+    group exists only inside the ``with`` and is destroyed at its end.
+    Raises if a group is already initialised here or if this torch has no
+    fake backend (``torch.testing._internal.distributed.fake_pg``)."""
+    import torch.distributed as dist
+    if not dist.is_available():
+        raise RuntimeError("the cost analysis needs torch.distributed, which "
+                           "this torch lacks")
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised in this "
+                           "process; the fake mesh needs its own")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "this torch has no fake process-group backend "
+            "(torch.testing._internal.distributed.fake_pg), which the cost "
+            f"analysis's abstract mesh needs: {e}") from e
+    world = 1
+    for n in shape:
+        world *= n
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield make_mesh(tuple(shape), tuple(names), "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def abstract_production_mesh(*, multi_pod: bool = False):
+    """:func:`make_production_mesh`'s mesh (256 or 512 ranks) over a fake
+    group, for tracing: a context manager (:func:`fake_mesh`)."""
+    return fake_mesh(*production_shape(multi_pod))
 
 
 def make_index_mesh(n_devices: int | None = None, *,

@@ -22,7 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rope
 from repro_torch.models.spmd import (decode_on_mesh, heads_on_mesh,
-                                     is_dtensor)
+                                     is_dtensor, whole_heads)
 
 __all__ = ["attn_init", "attention_train", "attention_decode",
            "init_kv_cache", "mla_init", "mla_train", "mla_decode",
@@ -61,6 +61,7 @@ def _qkv(params, x, cfg: ModelConfig):
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q, k, v = whole_heads(q, h), whole_heads(k, hkv), whole_heads(v, hkv)
     return (q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd),
             v.reshape(b, s, hkv, hd))
 

@@ -47,8 +47,9 @@ from repro_torch.models.layers import (apply_norm, dense_init, norm_init,
 from repro_torch.models.spmd import (embed_on_mesh, is_dtensor, picked,
                                      replicated_constants, whole_dim)
 from repro_torch.models.transformer import (block_decode, block_prefill,
-                                            block_train, layer_params,
-                                            mixer_for_layer, stack_init)
+                                            block_train, layer_list,
+                                            layer_params, mixer_for_layer,
+                                            stack_init)
 
 __all__ = ["Model"]
 
@@ -139,8 +140,18 @@ class Model:
         x = self._rows(params, batch["tokens"])
         if self.cfg.family == "vlm":
             proj = params["img_proj"]
-            img = self._tensor(batch["image_embeds"]).to(proj.dtype) @ proj
-            x = torch.cat([img.to(x.dtype), x], dim=1)
+            img = (self._tensor(batch["image_embeds"]).to(proj.dtype)
+                   @ proj).to(x.dtype)
+            if is_dtensor(x):
+                # on a mesh the rows are a pending sum over the vocab split
+                # and the prefix is split over features: DTensor cannot cat
+                # the two, so both take the rows' layout, the sum done
+                from torch.distributed.tensor import Replicate
+                whole = [Replicate() if p.is_partial() else p
+                         for p in x.placements]
+                x = x.redistribute(x.device_mesh, whole)
+                img = img.redistribute(x.device_mesh, whole)
+            x = torch.cat([img, x], dim=1)
         return x
 
     def n_prefix(self) -> int:
@@ -152,9 +163,8 @@ class Model:
         cfg = self.cfg
         proj = params["frontend_proj"]
         x = self._tensor(frames).to(proj.dtype) @ proj
-        for i in range(cfg.n_encoder_layers):
-            x, _ = block_train(layer_params(params["enc_blocks"], i), x, cfg,
-                               "attn", causal=False)
+        for lp in layer_list(params["enc_blocks"], cfg.n_encoder_layers):
+            x, _ = block_train(lp, x, cfg, "attn", causal=False)
         return apply_norm(params["enc_norm"], x, cfg)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -180,23 +190,20 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         x = self._embed(params, batch)
         if cfg.family == "hybrid":
-            groups = params["blocks"]
-            for i in range(self.n_groups):
+            for group in layer_list(params["blocks"], self.n_groups):
                 for name, mixer in (("rec1", "rec"), ("rec2", "rec")):
-                    x, _ = block_train(layer_params(groups[name], i), x, cfg,
-                                       mixer)
-                x, _ = block_train(layer_params(groups["attn"], i), x, cfg,
-                                   "attn", window=cfg.local_window)
-            for i in range(self.n_tail):
-                x, _ = block_train(layer_params(params["tail"], i), x, cfg,
-                                   "rec")
+                    x, _ = block_train(group[name], x, cfg, mixer)
+                x, _ = block_train(group["attn"], x, cfg, "attn",
+                                   window=cfg.local_window)
+            for lp in (layer_list(params["tail"], self.n_tail)
+                       if self.n_tail else []):
+                x, _ = block_train(lp, x, cfg, "rec")
         else:
             enc_out = (self._encode(params, batch["frames"])
                        if cfg.family == "encdec" else None)
             mixer = mixer_for_layer(cfg, 0)
-            for i in range(cfg.n_layers):
-                x, a = block_train(layer_params(params["blocks"], i), x, cfg,
-                                   mixer, enc_out=enc_out)
+            for lp in layer_list(params["blocks"], cfg.n_layers):
+                x, a = block_train(lp, x, cfg, mixer, enc_out=enc_out)
                 aux = aux + a
         x = apply_norm(params["final_norm"], x, cfg)
         return self._logits(params, x), aux

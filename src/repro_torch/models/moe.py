@@ -92,11 +92,13 @@ def route(params: dict, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
 
     # Switch aux loss: E * sum_e f_e * p_e
     me = probs.mean(dim=0)
-    ce = torch.bincount(expert_idx.reshape(-1), minlength=e).float() / (t * k)
+    flat_expert = expert_idx.reshape(-1)
+    # expert counts by scatter_add_ (bincount has no meta kernel)
+    ce = torch.zeros(e, dtype=torch.int64, device=xt.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert)).float() / (t * k)
     aux = e * (me * ce).sum()
 
     capacity = int(max(1, cfg.capacity_factor * t * k / e))
-    flat_expert = expert_idx.reshape(-1)
     flat_gate = gate_vals.reshape(-1)
     # rank each pair within its expert: the reference's f32 key, stably
     sort_key = flat_expert.float() * 2.0 - flat_gate / (flat_gate.max() + 1e-9)

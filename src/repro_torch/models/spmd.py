@@ -36,8 +36,8 @@ import contextlib
 import torch
 
 __all__ = ["is_dtensor", "replicated_constants", "heads_on_mesh",
-           "embed_on_mesh", "picked", "whole_dim", "decode_on_mesh",
-           "moe_on_mesh"]
+           "embed_on_mesh", "picked", "whole_dim", "whole_heads",
+           "decode_on_mesh", "moe_on_mesh"]
 
 
 def is_dtensor(x) -> bool:
@@ -173,6 +173,21 @@ def whole_dim(x, dim: int):
     dim %= x.ndim
     pl = [Replicate() if p.is_shard(dim) else p for p in x.placements]
     return x.redistribute(x.device_mesh, pl)
+
+
+def whole_heads(x, n_heads: int):
+    """A DTensor projection (..., n_heads * hd) with its last dim gathered
+    where a mesh axis that splits it does not divide ``n_heads`` (the
+    heads' reshape cannot cut a head in two); anything else as it is.
+    tinyllama's 4 K/V heads on the production mesh's 16-way ``model``
+    axis."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    mesh, last = x.device_mesh, x.ndim - 1
+    pl = [Replicate() if p.is_shard(last) and n_heads % mesh.size(i) else p
+          for i, p in enumerate(x.placements)]
+    return x if pl == list(x.placements) else x.redistribute(mesh, pl)
 
 
 def decode_on_mesh(core, q, k, v, kc, vc, cur, *, ring: bool, window):

@@ -23,9 +23,10 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, norm_init, swiglu,
                                        swiglu_init)
+from repro_torch.models.spmd import is_dtensor
 
 __all__ = ["MIXERS", "mixer_for_layer", "block_train", "block_prefill",
-           "block_decode", "stack_init", "layer_params"]
+           "block_decode", "stack_init", "layer_params", "layer_list"]
 
 MIXERS = ("attn", "mla", "ssm", "rec")
 
@@ -73,6 +74,22 @@ def layer_params(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def layer_list(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, unbound once (views).
+    Under autograd the stack's gradient is then one ``stack`` of the
+    layers' gradients; indexing each layer (:func:`layer_params`) makes a
+    zero tensor of the whole stack a layer and sums them, bytes quadratic
+    in depth.  A DTensor stack split on its layer dim (FSDP's choice where
+    that dim is the largest) is indexed a layer at a time: DTensor cannot
+    unbind a sharded dim."""
+    if isinstance(tree, dict):
+        subs = {k: layer_list(v, n) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    if is_dtensor(tree) and any(p.is_shard(0) for p in tree.placements):
+        return [tree[i] for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _ffn(params, x, cfg: ModelConfig):

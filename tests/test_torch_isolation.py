@@ -44,6 +44,9 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.launch.procs, repro_torch.launch.serve\n"
             "import repro_torch.launch.steps, repro_torch.launch.train\n"
             "import repro_torch.training.evaluate, repro_torch.checkpoint\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+            "import repro_torch.launch.perf, repro_torch.launch.cost\n"
+            "import repro_torch.kernels.cost\n"
             "import importlib.util as u, pathlib\n"
             f"p = pathlib.Path({str(PORT_FILES[-1])!r})\n"
             "spec = u.spec_from_file_location('runner', p)\n"
