@@ -247,8 +247,10 @@ Phases, each of which fails the run if it fails:
    11a: tinyllama-1.1b at its published widths in bf16, seeded weights,
    trains through ``launch.steps.make_train_step`` on
    ``TokenPipeline(vocab=32,000, seed=0)`` for 20 steps (AdamW lr 1e-3,
-   warmup 4) at the largest of batch 8 x seq 1,024, 4 x 1,024 and 8 x 512
-   that fits (printed): every loss finite, the mean of the last 5 below
+   warmup 4) under the published ``remat="full"`` (each block keeps its
+   inputs and runs its forward again in the backward) at the largest of
+   batch 16 x seq 1,024, 8 x 1,024, 4 x 1,024 and 8 x 512 that fits
+   (printed): every loss finite, the mean of the last 5 below
    the first 5's, the held-out nll (4 batches, seed 10,000,
    ``eval_batches``) falling.  Params and the AdamW state (bf16, f32,
    int32) go through ``save_checkpoint`` -> ``restore_checkpoint`` bit for
@@ -265,16 +267,24 @@ Phases, each of which fails the run if it fails:
    backward against the AdamW update, tokens/s, peak memory, checkpoint
    save/restore seconds and the 20th step under ``torch.profiler`` (device
    activities, busy share, top kernels) are printed with the card's name
-   and power limit.  11b: one f32 step of tinyllama at 2 layers, d 256 on
+   and power limit.  Then 4 steps at 8 x 1,024 under each of remat
+   ``full``, ``dots`` and ``none`` from one init: step p50 (the last 3,
+   CUDA events) and ``max_memory_allocated`` a mode, the first step's loss
+   the same (1e-5 relative); a mode that does not fit is printed as such.
+   11b: one f32 step of tinyllama at 2 layers, d 256 (remat ``full``) on
    the card and on the CPU from the same weights: loss within 1e-5
    relative, every gradient leaf within 1e-4 x its largest |g|, params
-   within 1e-5 but where AdamW's update is eps-dominated (counted).  11c:
-   olmoe-1b-7b at its published widths cut to 2 of 16 layers, bf16, batch
-   8 x 512, 3 steps (finite loss and gradients, aux > 0, dropped pairs
-   printed), and mamba2-780m, recurrentgemma-9b, whisper-tiny and
-   internvl2-26b one step each at their reduced configs (finite loss,
-   every gradient leaf finite).  11d: ``python -m repro_torch.launch.train
-   --arch olmo-1b --reduced --steps 12 --batch 2 --seq 32 --vocab 128`` and
+   within 1e-5 but where AdamW's update is eps-dominated (counted); on
+   the card ``full`` and ``dots`` against ``none``: loss within 1e-5
+   relative, every gradient leaf within 1e-4 x none's largest |g|, the
+   bit-equal leaves counted.  11c: olmoe-1b-7b at its published widths
+   cut to 2 of 16 layers, bf16, batch 8 x 512, 3 steps under ``full``
+   (finite loss and gradients, aux > 0, dropped pairs printed; ``full``
+   and ``dots`` against ``none`` as in 11b), and mamba2-780m,
+   recurrentgemma-9b, whisper-tiny and internvl2-26b one step each at
+   their reduced configs (finite loss, every gradient leaf finite).  11d:
+   ``python -m repro_torch.launch.train --arch olmo-1b --reduced --steps
+   12 --batch 2 --seq 32 --vocab 128`` and
    ``examples/{train_lm,quickstart,serve_stream,serve_gam}_torch.py``, each
    a process on the card, started together: each must exit 0 with its own
    assertions holding.
@@ -289,13 +299,14 @@ Phases, each of which fails the run if it fails:
    maps (counted from 0 around the requests); the kernel over a rank's
    rows is held against its plain version and timed; each rank's resident
    index bytes, request p50/p99 beside single-device.  12b: tinyllama-1.1b
-   at published widths, bf16, 4 steps of the unchanged
-   ``make_train_step`` on DTensors on (data 2, model 1) and (data 1,
-   model 2) at the largest of 4 x 1,024, 2 x 1,024, 4 x 512 (global) that
-   fits 0.48 of the card a rank (the first step probes it): the loss must
-   fall, a rank's resident param + moment bytes stay the specs' share; at
-   f32 on 2 layers, d 256, the sharded loss within 1e-5 relative and every
-   gradient leaf within 1e-4 of its largest against one rank's.  12c:
+   at published widths, depth cut to 8 of 22 layers, bf16, remat ``full``,
+   4 steps of the unchanged ``make_train_step`` on DTensors on (data 2,
+   model 1) and (data 1, model 2) at the largest of 4 x 1,024, 2 x 1,024,
+   4 x 512 (global) that fits 0.48 of the card a rank (the first step
+   probes it): the loss must fall, a rank's resident param + moment bytes
+   stay the specs' share; at f32 on 2 layers, d 256, the sharded loss
+   under remat ``full`` within 1e-5 relative and every gradient leaf
+   within 1e-4 of its largest against one rank's without remat.  12c:
    tinyllama-1.1b serving greedily through the prefill and serve steps on
    (data 2, model 1), the cache sharded on batch: the first token of every
    row equal to single-device ``Engine``'s, the steps each row holds
@@ -312,14 +323,17 @@ Phases, each of which fails the run if it fails:
    status ``ok``, printed.  13b: tinyllama-1.1b at its published widths in
    bf16, phase 5's decode step (batch 8, capacity 1,064, after a
    1,024-token prefill, ``decode_attention`` launched 22 times, counted
-   from 0 around it) and phase 11a's train step (at 11a's size) are each
-   counted once on meta tensors and once on the card's: flops by unit,
+   from 0 around it) and phase 11a's train step (remat ``full``, 8 x
+   1,024) are each counted once on meta tensors and once on the card's:
+   flops by unit,
    bytes and kernel entries must be equal, and the counted argument bytes
    equal the tensors' bytes.  Each step is timed uncounted (p50, CUDA
    events) against its roofline bound on one card (the larger of the
    compute and memory terms of ``launch/roofline.py``); a share above
    1.05 fails (the count left out work).  The counted peak is printed
-   beside ``torch.cuda.max_memory_allocated``, every figure with the
+   beside ``torch.cuda.max_memory_allocated``; the train step without
+   remat is counted on meta and its bound set against 11a's p50 of it;
+   every figure with the
    card's name and power limit; ``decode_attention`` is held to its plain
    version and timed at this step's layout (the
    ``decode_attention@cost13b`` row).
@@ -3304,7 +3318,10 @@ def phase_families(torch, report):
 
 # ---------------------------------------------------- 11. LM training
 
-TRAIN_SIZES = ((8, 1024), (4, 1024), (8, 512))   # (batch, seq), largest first
+# (batch, seq), largest first; 8 x 1,024 is PR 23's and 25's size
+TRAIN_SIZES = ((16, 1024), (8, 1024), (4, 1024), (8, 512))
+# each remat mode a few steps at 8 x 1,024 beside the published "full"
+REMAT_MODES, REMAT_SIZE, REMAT_STEPS = ("full", "dots", "none"), (8, 1024), 4
 TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 20, 1e-3, 4
 TRAIN_EVAL = 4                     # held-out batches, pipeline seed 10,000
 TRAIN_PROMPT, TRAIN_NEW = 64, 8    # serving from the restored checkpoint
@@ -3678,6 +3695,80 @@ def train_tinyllama(torch, st):
     return row
 
 
+def train_remat_modes(torch, st):
+    """11a: tinyllama-1.1b at REMAT_SIZE, REMAT_STEPS steps under each of
+    REMAT_MODES from the same init and batches (the first step probes and
+    is not timed): step p50 and ``max_memory_allocated`` a mode, the first
+    step's loss (the forward before any update) the same under every
+    mode.  A mode that does not fit the card is printed as such."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_batch
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, adamw_init
+    b, s = REMAT_SIZE
+    cfg = get_config(LM_ARCH)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS)
+    batches = [build_batch(cfg, t, np.random.default_rng(0)) for t, _ in
+               zip(TokenPipeline(vocab=cfg.vocab, seq_len=s, batch=b,
+                                 seed=0), range(REMAT_STEPS))]
+    smi = card_name_and_limit()
+    held = torch.cuda.memory_allocated()
+    out = {"batch": b, "seq": s, "held_before_gb": held / 1e9,
+           "nvidia_smi": smi}
+    for mode in REMAT_MODES:
+        model = Model(cfg.with_(remat=mode))
+        step = make_train_step(model, opt_cfg)
+        params = opt = met = None
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        try:
+            params = model.init(0)
+            opt = adamw_init(params)
+            for i, batch in enumerate(batches):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                params, opt, met = step(params, opt, batch)
+                ev[1].record()
+                losses.append(float(met["loss"]))
+                if i:
+                    step_ms.append(ev[0].elapsed_time(ev[1]))
+            fits = True
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        peak = torch.cuda.max_memory_allocated()
+        del params, opt, met, model, step
+        torch.cuda.empty_cache()
+        if not fits:
+            out[mode] = {"fits": False, "peak_gb": peak / 1e9}
+            print(f"11a remat {mode}: batch {b} x seq {s} does not fit the "
+                  f"card (peak {peak / 1e9:.2f} GB when it ran out) "
+                  f"[{smi}]")
+            continue
+        fail_unless(all(np.isfinite(losses)), f"11a remat {mode}: losses "
+                    f"{losses}")
+        out[mode] = {"fits": True, "losses": losses, "step_ms": step_ms,
+                     "step_ms_p50": float(np.percentile(step_ms, 50)),
+                     "peak_gb": peak / 1e9}
+    ran = [m for m in REMAT_MODES if out[m]["fits"]]
+    fail_unless("full" in ran, "11a remat: the published full does not fit")
+    first = {m: out[m]["losses"][0] for m in ran}
+    fail_unless(all(abs(x - first["full"]) <= PARITY_LOSS_TOL
+                    * abs(first["full"]) for x in first.values()),
+                f"11a remat: the first step's loss differs by mode: "
+                f"{first}")
+    full = out["full"]
+    print(f"11a remat at batch {b} x seq {s}, {REMAT_STEPS} steps a mode "
+          f"from one init ({held / 1e9:.2f} GB held before): " + "; ".join(
+              f"{m}: step p50 {out[m]['step_ms_p50']:.2f} ms "
+              f"({out[m]['step_ms_p50'] / full['step_ms_p50']:.3f} x "
+              f"full's), peak {out[m]['peak_gb']:.2f} GB"
+              for m in ran) + f"; first loss {first} [{smi}]", flush=True)
+    st.update(out)
+
+
 def train_parity(torch, st):
     """11b: one f32 train step of a narrowed tinyllama on the card and on
     the CPU, from the same weights and batch."""
@@ -3725,7 +3816,8 @@ def train_parity(torch, st):
                     "AdamW's update is not eps-dominated")
         off += int(bad.sum())
     n = sum(t.numel() for t in fc.values())
-    st.update({"config": PARITY_LM, "batch": PARITY_BATCH,
+    modes = remat_against_none(torch, cfg, p_gpu, b_gpu, "11b")
+    st.update({"config": PARITY_LM, "batch": PARITY_BATCH, "remat": modes,
                "seq": PARITY_SEQ, "loss_cpu": float(l_cpu),
                "loss_card": float(l_gpu), "loss_rel": loss_rel,
                "grad_worst_rel_to_max": worst, "metrics_worst_rel": met_rel,
@@ -3736,7 +3828,47 @@ def train_parity(torch, st):
           f"{worst:.2g} x each leaf's largest |g| (tolerance "
           f"{PARITY_GRAD_TOL}); one AdamW step: metrics within "
           f"{met_rel:.2g}, {off} of {n} params past {PARITY_PARAM_TOL}, all "
-          "eps-dominated")
+          f"eps-dominated; {print_remat(modes)}")
+
+
+def remat_against_none(torch, cfg, params, batch, what) -> dict:
+    """``cfg``'s loss and gradients on the card under "full" and "dots"
+    against "none"'s from the same params and batch: loss within
+    PARITY_LOSS_TOL relative, each gradient leaf within PARITY_GRAD_TOL x
+    none's largest |g|; the bit-equal leaves are counted."""
+    from repro_torch.models import Model
+    runs = {m: grads_of(torch, Model(cfg.with_(remat=m)), params, batch)
+            for m in ("none", "full", "dots")}
+    l0, _, g0 = runs.pop("none")
+    out = {}
+    for mode, (loss, _, grads) in runs.items():
+        rel = abs(float(loss) - float(l0)) / abs(float(l0))
+        worst = max(float((grads[k] - g).float().abs().max()
+                          / max(float(g.float().abs().max()), 1e-30))
+                    for k, g in g0.items())
+        fail_unless(rel <= PARITY_LOSS_TOL and worst <= PARITY_GRAD_TOL,
+                    f"{what} remat {mode}: loss rel {rel}, a gradient leaf "
+                    f"{worst} x its largest |g| against none's")
+        out[mode] = {"loss_bits_equal": tensor_bits_equal(torch, loss, l0),
+                     "loss_rel": rel, "grad_worst_rel_to_max": worst,
+                     "grads_bits_equal": sum(tensor_bits_equal(
+                         torch, grads[k], g) for k, g in g0.items()),
+                     "leaves": len(g0)}
+    del runs
+    return out
+
+
+def print_remat(modes: dict) -> str:
+    """``remat_against_none``'s result as a line."""
+    parts = []
+    for mode, r in modes.items():
+        loss = ("bit-equal" if r["loss_bits_equal"]
+                else f"rel {r['loss_rel']:.2g}")
+        parts.append(f"{mode} against none: loss {loss}, gradients within "
+                     f"{r['grad_worst_rel_to_max']:.2g} x each leaf's "
+                     f"largest |g|, {r['grads_bits_equal']} of "
+                     f"{r['leaves']} leaves bit-equal")
+    return "; ".join(parts)
 
 
 def train_families(torch, st):
@@ -3763,6 +3895,8 @@ def train_families(torch, st):
                 "11c olmoe: a non-finite loss or gradient")
     fail_unless(float(met["aux"]) > 0, "11c olmoe: aux loss is not > 0")
     del grads
+    modes = remat_against_none(torch, cfg, params, build_batch(
+        cfg, pipe.batch_at(0), np.random.default_rng(0)), "11c olmoe")
     step = make_train_step(model, opt_cfg)
     opt = adamw_init(params)
     losses, auxes = [], []
@@ -3779,7 +3913,7 @@ def train_families(torch, st):
     pairs = cfg.n_layers * OLMOE_TRAIN_BATCH * OLMOE_TRAIN_SEQ * cfg.moe_top_k
     st["olmoe"] = {"layers": cfg.n_layers, "of_layers": full.n_layers,
                    "batch": OLMOE_TRAIN_BATCH, "seq": OLMOE_TRAIN_SEQ,
-                   "losses": losses, "aux": auxes,
+                   "losses": losses, "aux": auxes, "remat": modes,
                    "dropped_pairs_per_step": drops.tolist(), "pairs": pairs}
     print(f"11c: olmoe-1b-7b at published widths, depth cut to "
           f"{cfg.n_layers} of {full.n_layers} layers, bf16, batch "
@@ -3788,7 +3922,7 @@ def train_families(torch, st):
           f"{', '.join(f'{x:.4f}' for x in losses)}, aux "
           f"{', '.join(f'{x:.4f}' for x in auxes)}; every gradient leaf "
           f"finite; dropped (token, slot) pairs a step (all layers) "
-          f"{drops.tolist()} of {pairs}")
+          f"{drops.tolist()} of {pairs}; {print_remat(modes)}")
     del model, params, opt
     torch.cuda.empty_cache()
     for arch in FAMILY_TRAIN:
@@ -3847,6 +3981,8 @@ def phase_training(torch, report):
     t0 = time.perf_counter()
     out["11a"] = {}
     row = train_tinyllama(torch, out["11a"])
+    out["11a"]["remat"] = {}
+    train_remat_modes(torch, out["11a"]["remat"])
     out["11b"] = {}
     t1 = time.perf_counter()
     train_parity(torch, out["11b"])
@@ -3871,6 +4007,11 @@ MESH_RANKS = 2                 # processes sharing the one card (12a-c)
 MESH_REQUESTS = 8              # of BATCH queries after one warm-up: 2,048
 MESH_TRAIN_SIZES = ((4, 1024), (2, 1024), (4, 512))   # global, largest first
 MESH_TRAIN_STEPS = 4           # the first probes the size; 3 are timed
+# 12b's depth, of tinyllama's 22 layers: under the published remat the
+# forward's collectives run again in the backward, and at 22 layers a step
+# took 15.3 s on (data 2, model 1) and 47.5 s on (data 1, model 2) (H100,
+# two ranks over gloo through host memory), 288 s for the part
+MESH_TRAIN_LAYERS = 8
 MESH_TRAIN_MESHES = ((2, 1), (1, 2))                  # (data, model)
 MESH_SERVE_BATCH, MESH_PROMPT, MESH_NEW = 8, 1024, 32
 MESH_MEMORY_SHARE = 0.48       # of the card, each rank (12b's size probe)
@@ -4002,11 +4143,12 @@ def mesh_all_ok(torch, ok: bool) -> bool:
 
 
 def mesh_train_part(torch, rank, dev) -> dict:
-    """12b: tinyllama-1.1b at published widths trains 4 steps on two
-    2-rank meshes, (data 2, model 1) and (data 1, model 2), through the
-    unchanged ``make_train_step`` on DTensors (the first step probes the
-    size and is not timed); and at f32 on the 2-layer d-256 config, the
-    sharded loss and gradients against one rank's."""
+    """12b: tinyllama-1.1b at published widths, MESH_TRAIN_LAYERS deep,
+    trains 4 steps on two 2-rank meshes, (data 2, model 1) and (data 1,
+    model 2), through the unchanged ``make_train_step`` on DTensors (the
+    first step probes the size and is not timed); and at f32 on the
+    2-layer d-256 config, the sharded loss and gradients under the
+    published remat against one rank's without."""
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.mesh import STAGED, make_mesh
@@ -4015,7 +4157,7 @@ def mesh_train_part(torch, rank, dev) -> dict:
     from repro_torch.models import Model
     from repro_torch.sharding.specs import batch_specs, param_shardings, place
     from repro_torch.training import AdamWConfig, adamw_init
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(LM_ARCH).with_(n_layers=MESH_TRAIN_LAYERS)
     model = Model(cfg, device=dev)
     step_fn = make_train_step(model, AdamWConfig(
         lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
@@ -4083,6 +4225,7 @@ def mesh_train_part(torch, rank, dev) -> dict:
                     f"bytes moved from {resident} to {after}")
         p50 = float(np.percentile(step_ms, 50))
         out["meshes"][name] = {
+            "remat": cfg.remat, "layers": cfg.n_layers,
             "batch": b, "seq": s, "losses": losses, "step_ms": step_ms,
             "step_ms_p50": p50, "step_ms_p99": float(np.percentile(step_ms,
                                                                    99)),
@@ -4095,8 +4238,8 @@ def mesh_train_part(torch, rank, dev) -> dict:
                 for name, st in STAGED.items()}}
         del params, opt, met, batch
         torch.cuda.empty_cache()
-        # f32, 2 layers, d 256: the sharded loss and gradients against one
-        # rank's on the same batch
+        # f32, 2 layers, d 256: the sharded loss and gradients under the
+        # published remat against one rank's without, on the same batch
         small = get_reduced_config(LM_ARCH)
         sm = Model(small, device=dev)
         p1 = sm.init(0)
@@ -4107,8 +4250,9 @@ def mesh_train_part(torch, rank, dev) -> dict:
         pm = place(p1, param_shardings(mesh, p1))
         from repro_torch.models.spmd import replicated_constants
         with replicated_constants(True):
-            lossm, _, gm = grads_of(torch, sm, pm, place(
-                b1, batch_specs(small, mesh, b1)))
+            lossm, _, gm = grads_of(
+                torch, Model(small.with_(remat=cfg.remat), device=dev), pm,
+                place(b1, batch_specs(small, mesh, b1)))
         lossm = float(lossm.full_tensor())
         rel = abs(lossm - float(loss1)) / abs(float(loss1))
         gerr = max(float((gm[k].full_tensor() - g).abs().max())
@@ -4310,14 +4454,17 @@ def phase_mesh(torch, report, parts="12a,12b,12c"):
               f"({g['bound_by']})")
     for o in ranks:
         for name, m in o.get("12b", {"meshes": {}})["meshes"].items():
-            print(f"12b rank {o['rank']} {name}: global batch {m['batch']} x "
-                  f"seq {m['seq']}, losses {[round(x, 4) for x in m['losses']]}"
+            print(f"12b rank {o['rank']} {name} ({m['layers']} layers, "
+                  f"remat {m['remat']}): "
+                  f"global batch {m['batch']} x seq {m['seq']}, losses "
+                  f"{[round(x, 4) for x in m['losses']]}"
                   f", step p50 {m['step_ms_p50']:.1f} ms p99 "
                   f"{m['step_ms_p99']:.1f} ms, {m['tokens_per_s']:.0f} "
                   f"tokens/s, peak {m['peak_gb']:.2f} GB, resident "
                   f"{m['resident_bytes']} bytes against one rank's "
                   f"{m['single_rank_bytes']}; staged through host memory a "
-                  f"step {m['staged_per_step']}; f32 2-layer loss rel "
+                  f"step {m['staged_per_step']}; f32 2-layer under remat "
+                  f"{m['remat']} against one rank's without: loss rel "
                   f"{m['f32_loss_rel']:.3g}, gradients "
                   f"{m['f32_grad_rel']:.3g} of each leaf's largest")
     for o in ranks:
@@ -4510,8 +4657,10 @@ def cost_decode(torch, smi: str) -> tuple[dict, dict]:
 
 
 def cost_train(torch, report, smi: str) -> dict:
-    """13b train: phase 11a's step (tinyllama-1.1b, bf16, at 11a's size)
-    counted on meta and on the card, timed uncounted."""
+    """13b train: phase 11a's step (tinyllama-1.1b, bf16, the published
+    remat "full") at REMAT_SIZE counted on meta and on the card, timed
+    uncounted; the same step without remat counted on meta, its bound
+    against 11a's p50 of it at this size."""
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.steps import make_train_step
@@ -4521,15 +4670,16 @@ def cost_train(torch, report, smi: str) -> dict:
     cfg = get_config(LM_ARCH)
     model = Model(cfg)
     step = make_train_step(model)
-    a = report.get("training", {}).get("11a", {})
-    b, s = ((a["batch"], a["seq"]) if "batch" in a
-            else train_size(torch, model, step, cfg))
+    b, s = REMAT_SIZE
     batch = build_batch(cfg, TokenPipeline(vocab=cfg.vocab, seq_len=s,
                                            batch=b, seed=0).batch_at(0),
                         np.random.default_rng(0))
     meta_model = Model(cfg, device="meta")
     meta_params = meta_model.init(0)
     on_meta = counted(torch, make_train_step(meta_model), (
+        meta_params, adamw_init(meta_params), meta_like(torch, batch)))
+    none_model = Model(cfg.with_(remat="none"), device="meta")
+    on_meta_none = counted(torch, make_train_step(none_model), (
         meta_params, adamw_init(meta_params), meta_like(torch, batch)))
     del meta_params
     params = model.init(0)
@@ -4553,17 +4703,43 @@ def cost_train(torch, report, smi: str) -> dict:
     base = torch.cuda.memory_allocated()
     ms = event_p50(torch, one, COST_TRAIN_CALLS)
     peak = torch.cuda.max_memory_allocated()
-    rec = {"batch": b, "seq": s, "count": on_card,
+    # what the process held past the step's arguments is not counted
+    step_peak = peak - (base - real)
+    rec = {"batch": b, "seq": s, "remat": cfg.remat, "count": on_card,
            "argument_bytes_real": real, "max_memory_allocated": peak,
            "allocated_before": base,
-           **step_share(torch, on_card, ms, f"train step ({b} x {s})", smi)}
-    print(f"13b train ({b} x {s}): counted on meta = on the card: flops "
-          f"{on_card['flops']}, bytes {on_card['bytes_accessed']}; argument "
-          f"bytes {on_card['memory']['argument']} = the tensors'; counted "
-          f"peak {on_card['memory']['peak']} bytes (nothing donated: the "
-          f"old params and moments beside the new) beside "
+           "counted_peak_over_allocated": on_card["memory"]["peak"]
+           / step_peak,
+           **step_share(torch, on_card, ms, f"train step ({b} x {s}, remat "
+                        f"{cfg.remat})", smi)}
+    print(f"13b train ({b} x {s}, remat {cfg.remat}): counted on meta = on "
+          f"the card: flops {on_card['flops']}, bytes "
+          f"{on_card['bytes_accessed']}; argument bytes "
+          f"{on_card['memory']['argument']} = the tensors'; counted peak "
+          f"{on_card['memory']['peak']} bytes (nothing donated: the old "
+          f"params and moments beside the new) beside "
           f"torch.cuda.max_memory_allocated {peak} (held before the step: "
-          f"{base}) [{smi}]")
+          f"{base}, of it {base - real} past the step's arguments): "
+          f"{rec['counted_peak_over_allocated']:.4f} of the step's own "
+          f"{step_peak} [{smi}]")
+    from repro_torch.launch.roofline import HBM_BW, compute_seconds
+    none_ms = (report.get("training", {}).get("11a", {}).get("remat", {})
+               .get("none", {}).get("step_ms_p50"))
+    t_c = compute_seconds(on_meta_none["flops"]) * 1e3
+    t_m = on_meta_none["bytes_accessed"] / HBM_BW * 1e3
+    rec["none"] = {"count": on_meta_none, "bound_ms": max(t_c, t_m),
+                   "compute_ms": t_c, "memory_ms": t_m, "p50_ms": none_ms,
+                   "share": none_ms and max(t_c, t_m) / none_ms}
+    print(f"13b train ({b} x {s}) without remat, counted on meta: flops "
+          f"{on_meta_none['flops']}, bytes "
+          f"{on_meta_none['bytes_accessed']}, "
+          f"peak {on_meta_none['memory']['peak']}; bound "
+          f"{rec['none']['bound_ms']:.4f} ms (compute {t_c:.4f}, memory "
+          f"{t_m:.4f}); 11a's p50 of it "
+          + ("not measured (it did not fit)" if none_ms is None else
+             f"{none_ms:.2f} ms, share {rec['none']['share']:.4f}")
+          + f"; with remat {cfg.remat}: bound {rec['bound_ms']:.4f} ms, "
+          f"share {rec['share']:.4f} [{smi}]")
     del state, batch
     return rec
 

@@ -26,6 +26,11 @@ cross K/V hold the encoder's length.  ``decode_step`` writes the new rows
 into the cache it is given and returns it with ``len`` advanced; the cursor
 never leaves the device, so a step makes no host synchronisation.
 
+The train-time forward runs each decoder block, each whisper encoder
+block, each RecurrentGemma period-3 group (as one unit) and each of its
+tail blocks through ``transformer.remat_wrap``, so ``cfg.remat`` decides
+what the backward keeps and what it recomputes, as in the reference.
+
 Parameters, batches and caches may be DTensors placed on a device mesh
 (``sharding.specs``): the methods run the same code, with the few ops
 DTensor cannot place written per rank in ``models/spmd.py``; ``prefill``
@@ -49,7 +54,7 @@ from repro_torch.models.spmd import (embed_on_mesh, is_dtensor, picked,
 from repro_torch.models.transformer import (block_decode, block_prefill,
                                             block_train, layer_list,
                                             layer_params, mixer_for_layer,
-                                            stack_init)
+                                            remat_wrap, stack_init)
 
 __all__ = ["Model"]
 
@@ -163,8 +168,10 @@ class Model:
         cfg = self.cfg
         proj = params["frontend_proj"]
         x = self._tensor(frames).to(proj.dtype) @ proj
+        body = remat_wrap(functools.partial(block_train, cfg=cfg,
+                                            mixer="attn", causal=False), cfg)
         for lp in layer_list(params["enc_blocks"], cfg.n_encoder_layers):
-            x, _ = block_train(lp, x, cfg, "attn", causal=False)
+            x, _ = body(lp, x)
         return apply_norm(params["enc_norm"], x, cfg)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -180,6 +187,16 @@ class Model:
 
     # ------------------------------------------------------------ forward
 
+    def _group_train(self, group, x) -> torch.Tensor:
+        """A RecurrentGemma period-3 group, full sequence: rec, rec, local
+        attention."""
+        cfg = self.cfg
+        for name in ("rec1", "rec2"):
+            x, _ = block_train(group[name], x, cfg, "rec")
+        x, _ = block_train(group["attn"], x, cfg, "attn",
+                           window=cfg.local_window)
+        return x
+
     @_on_mesh
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence logits (B, S, V_padded) f32 (S counts the image
@@ -190,20 +207,23 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         x = self._embed(params, batch)
         if cfg.family == "hybrid":
+            # a period-3 group is one rematerialised unit, as in the
+            # reference; each tail block is one
+            group_body = remat_wrap(self._group_train, cfg)
             for group in layer_list(params["blocks"], self.n_groups):
-                for name, mixer in (("rec1", "rec"), ("rec2", "rec")):
-                    x, _ = block_train(group[name], x, cfg, mixer)
-                x, _ = block_train(group["attn"], x, cfg, "attn",
-                                   window=cfg.local_window)
+                x = group_body(group, x)
+            tail_body = remat_wrap(functools.partial(
+                block_train, cfg=cfg, mixer="rec"), cfg)
             for lp in (layer_list(params["tail"], self.n_tail)
                        if self.n_tail else []):
-                x, _ = block_train(lp, x, cfg, "rec")
+                x, _ = tail_body(lp, x)
         else:
             enc_out = (self._encode(params, batch["frames"])
                        if cfg.family == "encdec" else None)
-            mixer = mixer_for_layer(cfg, 0)
+            body = remat_wrap(functools.partial(
+                block_train, cfg=cfg, mixer=mixer_for_layer(cfg, 0)), cfg)
             for lp in layer_list(params["blocks"], cfg.n_layers):
-                x, a = block_train(lp, x, cfg, mixer, enc_out=enc_out)
+                x, a = body(lp, x, enc_out=enc_out)
                 aux = aux + a
         x = apply_norm(params["final_norm"], x, cfg)
         return self._logits(params, x), aux

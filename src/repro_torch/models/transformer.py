@@ -11,10 +11,19 @@ on the layer slice ``layer_params(blocks, i)`` (views, no copies).
 ``block_prefill`` and ``block_decode`` write the block's decode cache in
 place: the cache tensors they are given are that layer's slices of the
 model's stacked cache.
+
+``remat_wrap`` is the reference's rematerialisation: under ``cfg.remat``
+``"full"`` a wrapped block keeps only its inputs for the backward and runs
+its forward again there; under ``"dots"`` it also keeps the outputs of its
+matrix products (``jax.checkpoint_policies.checkpoint_dots``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -26,7 +35,8 @@ from repro_torch.models.layers import (apply_norm, norm_init, swiglu,
 from repro_torch.models.spmd import is_dtensor
 
 __all__ = ["MIXERS", "mixer_for_layer", "block_train", "block_prefill",
-           "block_decode", "stack_init", "layer_params", "layer_list"]
+           "block_decode", "stack_init", "layer_params", "layer_list",
+           "remat_wrap", "DOT_OPS"]
 
 MIXERS = ("attn", "mla", "ssm", "rec")
 
@@ -199,3 +209,47 @@ def block_decode(params, x, cfg: ModelConfig, mixer: str, cache: dict, *,
         h = apply_norm(params["norm_x"], x, cfg)
         x = x + attn.cross_attention(params["cross"], h, enc_kv, cfg)
     return _ffn(params, x, cfg)[0], cache
+
+
+aten = torch.ops.aten
+
+#: The aten ops that the blocks' ``@`` and einsums lower to: what ``"dots"``
+#: saves, as ``checkpoint_dots`` saves every ``dot_general``.
+DOT_OPS = frozenset({aten.mm.default, aten.addmm.default, aten.bmm.default,
+                     aten.baddbmm.default})
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if func in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``: ``"none"`` keeps every activation for
+    the backward; ``"full"`` keeps ``fn``'s inputs and runs it again in the
+    backward; ``"dots"`` keeps the matrix products' outputs as well and
+    recomputes the rest.  With grad disabled (eval, prefill, decode) the
+    wrapped function is a plain call."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        policy = {}
+    elif cfg.remat == "dots":
+        policy = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    else:
+        raise ValueError(f"unknown remat mode {cfg.remat!r}: none, full or "
+                         "dots")
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        # non-reentrant: the train step takes its gradients with
+        # torch.autograd.grad, which reentrant checkpointing refuses.  No
+        # block draws random numbers, so no RNG state is stashed (stashing
+        # it would also need a generator on the meta device).
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **policy, **kwargs)
+
+    return run

@@ -5,19 +5,22 @@ gloo group (``repro_torch.launch.procs``); each runs the same checks of one
 suite on device meshes over the group, and every check's result (and the
 data a test compares) is written to ``--out`` as JSON by rank 0:
 ``{check: {"ok": bool, "detail": str, "data": ...}}``, ok only where every
-rank passed.  ``tests/test_torch_sharding.py`` and
-``tests/test_torch_mesh_index.py`` run it once each and read the file.
+rank passed.  ``tests/test_torch_sharding.py``,
+``tests/test_torch_mesh_index.py`` and ``tests/test_torch_remat.py`` run it
+once each and read the file.
 
 ``--suite sharding`` (a ``(2, 2)`` ``("data", "model")`` mesh): each rank's
 block of a placed tensor, ``shard_batch``, sharded train steps of four
 families and sharded serve steps (batch-sharded and a seq-sharded batch-1
 sliding-window decode) against the single-device port, the resident bytes
 the specs give, a checkpoint of a DTensor tree, and the host-staged
-collectives.  ``--suite index`` (a 2-rank ``items`` mesh twice over and a
-4-rank one): the mesh-placed ``sharded`` index against single-device
-``sharded`` bit for bit through build, queries, mutations, compaction,
-int8, snapshots, an uneven split and a heterogeneous partition, and
-``brute`` on exact queries.
+collectives.  ``--suite remat`` (the same mesh): sharded train steps with
+the blocks rematerialised (``cfg.remat`` full or dots) against one
+device's step without.  ``--suite index`` (a 2-rank ``items`` mesh twice
+over and a 4-rank one): the mesh-placed ``sharded`` index against
+single-device ``sharded`` bit for bit through build, queries, mutations,
+compaction, int8, snapshots, an uneven split and a heterogeneous
+partition, and ``brute`` on exact queries.
 
 Usage:
 
@@ -127,9 +130,10 @@ def check_shard_batch(ctx):
     raise AssertionError("a batch that does not split must raise")
 
 
-def _train_case(ctx, arch):
-    """One train step of ``arch`` (reduced, f32, vocab 512) on the mesh
-    against one device, from the same seeded params and batch."""
+def _train_case(ctx, arch, remat="none"):
+    """One train step of ``arch`` (reduced, f32, vocab 512) on the mesh,
+    its blocks under ``remat``, against one device without
+    rematerialisation, from the same seeded params and batch."""
     import numpy as np
     import torch
     from repro_torch.configs import get_reduced_config
@@ -146,6 +150,9 @@ def _train_case(ctx, arch):
     tokens = np.random.default_rng(0).integers(0, cfg.vocab, (4, 33))
     batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32)}
     want_p, want_o, want_m = step(params, adamw_init(params), batch)
+    if remat != cfg.remat:
+        step = make_train_step(Model(cfg.with_(remat=remat), device="cpu"),
+                               opt_cfg)
     mesh = ctx.mesh
     shard = param_shardings(mesh, params)
     dp = place(params, shard)
@@ -354,6 +361,17 @@ SHARDING_CHECKS += [
     ("checkpoint", check_checkpoint),
     # last: it stages every later collective of this process
     ("staged_collectives", check_staged_collectives)]
+
+
+# ---------------------------------------------------------- suite: remat
+
+# (arch, remat mode) of the sharded train steps held to one device's step
+# without rematerialisation
+REMAT_CASES = (("tinyllama-1.1b", "full"), ("olmoe-1b-7b", "full"),
+               ("recurrentgemma-9b", "full"), ("tinyllama-1.1b", "dots"))
+REMAT_CHECKS = [(f"train[{a}-{m}]",
+                 lambda ctx, a=a, m=m: _train_case(ctx, a, remat=m))
+                for a, m in REMAT_CASES]
 
 
 # ---------------------------------------------------------- suite: index
@@ -609,9 +627,9 @@ def worker(args) -> None:
     init_process_group(args.coordinator, args.processes, args.process_id,
                        timeout_s=args.group_timeout)
     ctx = Ctx(args)
-    if args.suite == "sharding":
+    if args.suite in ("sharding", "remat"):
         ctx.mesh = _mesh_2x2(args.device)
-        checks = SHARDING_CHECKS
+        checks = SHARDING_CHECKS if args.suite == "sharding" else REMAT_CHECKS
     else:
         ctx.index_meshes = {1: _two_rank_mesh(args.device),
                             2: make_index_mesh(args.processes,
@@ -644,7 +662,7 @@ def worker(args) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--suite", choices=("sharding", "index"),
+    ap.add_argument("--suite", choices=("sharding", "remat", "index"),
                     default="sharding")
     ap.add_argument("--processes", type=int, default=4)
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
@@ -662,7 +680,7 @@ def main() -> int:
     args = ap.parse_args()
     args.tmp = args.tmp or os.path.dirname(os.path.abspath(args.out))
     if args.processes != 4:
-        raise SystemExit("the meshes of both suites take 4 processes")
+        raise SystemExit("the meshes of every suite take 4 processes")
     if args.role == "worker":
         worker(args)
         return 0

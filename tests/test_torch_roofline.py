@@ -137,3 +137,26 @@ def test_roofline_and_perf_records_keep_the_reference_keys():
     assert p["chips"] == 1 and p["t_collective_s"] == 0.0
     assert {"arch", "shape", "variant", "t_compute_s", "t_memory_s",
             "t_collective_s", "dominant", "useful_ratio"} <= set(p)
+
+
+def test_remat_tokens_change_what_is_counted(monkeypatch):
+    """``remat_none`` and ``remat_dots`` count other programs than
+    ``baseline`` (the published ``remat="full"``): on a reduced tinyllama
+    with the published remat, at ``train_4k`` on one rank, ``full``
+    recomputes each block's forward (more flops and bytes, a lower
+    usefulness ratio: the reference's remat waste) and holds the lowest
+    peak; ``dots`` recomputes no product (``none``'s flops) and lies
+    between the two in bytes and peak."""
+    cfg = get_reduced_config("tinyllama-1.1b").with_(vocab=512, q_chunk=1024)
+    monkeypatch.setattr(perf, "get_config",
+                        lambda arch: cfg.with_(remat="full"))
+    rec = {v: perf.measure("tinyllama-1.1b", "train_4k", f"{v}+mesh1")
+           for v in ("baseline", "remat_none", "remat_dots")}
+    full, none, dots = rec["baseline"], rec["remat_none"], rec["remat_dots"]
+    assert full["t_compute_s"] > none["t_compute_s"] == dots["t_compute_s"]
+    assert full["t_memory_s"] > dots["t_memory_s"] > none["t_memory_s"]
+    assert (full["peak_bytes_per_device"] < dots["peak_bytes_per_device"]
+            < none["peak_bytes_per_device"])
+    assert full["useful_ratio"] < none["useful_ratio"] == dots["useful_ratio"]
+    assert full["argument_bytes_per_device"] \
+        == none["argument_bytes_per_device"]
