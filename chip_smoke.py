@@ -180,7 +180,21 @@ Phases, each of which fails the run if it fails:
    recall@10 online against a frozen retriever at rounds 1, 5 and 10 are
    printed.  The kernels are held against their plain versions on the
    inputs the rounds gave them (the oracle and the frozen queries do not
-   count toward the launches).
+   count toward the launches).  8d: the paper's §6.2 chain,
+   ``examples/movielens_repro_torch.py``'s ``main`` in this process on
+   the card, nothing cut: ``train_mf`` on the surrogate, the §6 line-up
+   (``gam``, ``gam-sparse``, SRP-LSH, Super-bit LSH, CRO, the PCA tree)
+   over 200 users at kappa 10 with the example's assertions (GAM accuracy
+   > 0.85, discard > 0.3, at least as accurate as each baseline within
+   0.15 of its discard), the streaming replay of the 73,786 ratings into
+   a live 2-shard ``sharded`` index (= a rebuild bit for bit) and the 400
+   cached Zipf requests (``wrong == 0``).  ``gam_retrieve``,
+   ``tess_project`` and ``gam_score`` must each launch more than once;
+   the line-up must equal the port's on the CPU on the card's factors
+   (``gam`` and ``gam-sparse`` per user; the baselines' discard but for
+   boundary users, each explained by a hash code or PCA leaf apart,
+   counted); every captured call is held to its plain version.  Stage
+   seconds, the table, pushes and the cache's hit rate are printed.
 9. Multi-host serving.  9a: two processes (``chip_smoke.py
    --multihost-worker``, spawned by ``repro_torch.launch.procs``) join
    one gloo group and share the card (the phase fails, naming it, when
@@ -348,6 +362,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -2141,11 +2156,160 @@ def same_factors(a, b, what):
                 f"{what}: two train_mf runs with one seed differ")
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (as ``tests/test_torch_examples.py``
+    loads it)."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def baseline_codes(impl, x) -> np.ndarray:
+    """A §5.1 baseline's codes of rows ``x``: (n_tables, B) hash codes, or
+    (1, B) PCA-tree leaves."""
+    if hasattr(impl, "leaf_of"):
+        return impl.leaf_of(x)[None].cpu().numpy()
+    return impl._codes(impl._users(x)).cpu().numpy()
+
+
+def candidate_sets(impl, users) -> list:
+    qrow, rows = impl.candidates(impl._users(users))
+    qrow, rows = qrow.cpu().numpy(), rows.cpu().numpy()
+    return [set(rows[qrow == q].tolist()) for q in range(len(users))]
+
+
+def lineup_against_cpu(card, cpu, users, items) -> dict:
+    """8d: the card's §6 line-up against the port's on the CPU, on the
+    card's factors.  ``gam`` and ``gam-sparse``: per-user accuracy and
+    discard equal.  The baselines: discard equal but for boundary users,
+    whose candidate sets differ between the card's structure and the
+    CPU's; each must be explained by codes (hash codes, PCA leaves) that
+    differ between the two, the user's own or those of every item in the
+    two sets' difference (the same planes, seeds and dot-product order on
+    both, so only rounding sets a code apart).  Returns the counts."""
+    for name in ("gam", "gam-sparse"):
+        for key in ("accuracy", "discard"):
+            fail_unless(np.array_equal(card["lineup"][name][key],
+                                       cpu["lineup"][name][key]),
+                        f"8d: {name} {key} on the card differs from the "
+                        "CPU's")
+    counts = {}
+    for name in ("srp-lsh", "superbit-lsh", "cro", "pca-tree"):
+        a, b = card["methods"][name]._impl, cpu["methods"][name]._impl
+        u_moved = (baseline_codes(a, users) != baseline_codes(b, users)).any(0)
+        i_moved = set(np.nonzero((baseline_codes(a, items)
+                                  != baseline_codes(b, items)).any(0))[0]
+                      .tolist())
+        sets = list(zip(candidate_sets(a, users), candidate_sets(b, users)))
+        moved = np.array([x != y for x, y in sets])
+        explained = u_moved | np.array([(x ^ y) <= i_moved for x, y in sets])
+        fail_unless(not (moved & ~explained).any(),
+                    f"8d: {name}: users {np.nonzero(moved & ~explained)[0]} "
+                    "have other candidates on the card than on the CPU, "
+                    "with no code apart")
+        differ = (card["lineup"][name]["discard"]
+                  != cpu["lineup"][name]["discard"])
+        fail_unless(not (differ & ~moved).any(),
+                    f"8d: {name}: discard differs with equal candidates")
+        counts[name] = {"boundary_users": int(moved.sum()),
+                        "items_apart": len(i_moved),
+                        "discard_differs": int(differ.sum())}
+    return counts
+
+
+def phase_repro(torch, out) -> list:
+    """8d: ``examples/movielens_repro_torch.py``'s ``main`` on the card, in
+    this process, under the launch counters and the captures of the three
+    kernels; then the line-up against the CPU's on the card's factors and
+    each captured call against its plain version.  Fills ``out["8d"]``;
+    returns the ``kernels`` rows."""
+    from repro_torch.configs.gam_mf import MF
+    gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
+    tp = importlib.import_module("repro_torch.kernels.tess_project")
+    gs = importlib.import_module("repro_torch.kernels.gam_score")
+    kernels = ((gr, "gam_retrieve"), (tp, "tess_project"), (gs, "gam_score"))
+    ex = load_example("movielens_repro_torch")
+    for m, n in kernels:
+        getattr(m, n).launches = 0
+    t0 = time.perf_counter()
+    with Capture(gr, "gam_retrieve") as cap_r, \
+            Capture(tp, "tess_project") as cap_t, \
+            Capture(gs, "gam_score") as cap_s:
+        try:
+            card = ex.main(["--device", DEVICE])
+        except AssertionError as e:
+            fail_unless(False, "8d: an assertion of "
+                        f"examples/movielens_repro_torch.py failed on the "
+                        f"card: {e!r}")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {n: getattr(m, n).launches for m, n in kernels}
+    for name, n in launches.items():
+        fail_unless(n > 1, f"8d: {name} launched {n} times, not more than "
+                    "once")
+    u, v = card["u"], card["v"]
+    users = u[:ex.LINEUP_USERS]
+    with Uncounted(*kernels):
+        t0 = time.perf_counter()
+        methods = ex.build_methods(v, MF.k, gam_threshold=0.25,
+                                   gam_min_overlap=2, sparse_threshold=0.15,
+                                   device="cpu")
+        cpu = {"methods": methods,
+               "lineup": ex.evaluate(methods, v, users, kappa=KAPPA,
+                                     device="cpu")}
+        cpu_s = time.perf_counter() - t0
+        boundary = lineup_against_cpu(card, cpu, users, v)
+        # every captured call is held to its plain version; the kernels
+        # line keeps the line-up's shapes, a request of 64 and of 1 at the
+        # largest group, the map at the catalog, the users, 64, 1 and the
+        # largest delta
+        rows = learning_kernel_rows(torch, cap_r.calls, cap_t.calls,
+                                    cap_s.calls, launches, "8d")
+    largest = {}
+    for key in cap_r.calls:
+        largest[key[0][0]] = max(largest.get(key[0][0], 0), key[1][0])
+    delta = max((key[0][0] for key in cap_t.calls
+                 if key[0][0] != len(v)), default=0)
+    keep = ({f"gam_retrieve@8d_{q}x{n}" for q, n in largest.items()}
+            | {f"tess_project@8d_{n}rows"
+               for n in (len(v), ex.LINEUP_USERS, 64, 1, delta)}
+            | {f"gam_score@8d_{key[0][0]}x{key[1][0]}" for key in cap_s.calls})
+    rows = [r for r in rows if r["name"] in keep]
+    lineup = {name: {key: r[key] for key in ("accuracy_mean", "discard_mean",
+                                             "speedup")}
+              for name, r in card["lineup"].items()}
+    out["8d"] = {"wall_s": wall_s, "stage_s": card["stage_s"],
+                 "lineup": lineup, "push": card["push"],
+                 "cache": card["cache"], "wrong": card["wrong"],
+                 "launches": launches, "cpu_lineup_s": cpu_s,
+                 "boundary": boundary,
+                 "calls_checked": {"gam_retrieve": len(cap_r.calls),
+                                   "tess_project": len(cap_t.calls),
+                                   "gam_score": len(cap_s.calls)}}
+    ps, cs = card["push"], card["cache"]
+    print(f"learn 8d: examples/movielens_repro_torch.py on the card in "
+          f"{wall_s:.2f} s, stages " + ", ".join(
+              f"{k} {t:.3f} s" for k, t in card["stage_s"].items())
+          + "; line-up (accuracy / discard) " + ", ".join(
+              f"{name} {r['accuracy_mean']:.4f} / {r['discard_mean']:.4f}"
+              for name, r in lineup.items())
+          + f"; = the CPU's on the card's factors ({cpu_s:.2f} s), "
+          f"boundary users {boundary}; pushed {ps['pushed']}, suppressed "
+          f"{ps['suppressed']}; cache hit rate {cs['hit_rate']:.4f}, "
+          f"{cs['invalidations']} invalidations, wrong {card['wrong']}; "
+          f"launches {launches}; calls held to plain "
+          f"{out['8d']['calls_checked']}")
+    return rows
+
+
 def phase_learning(torch, report):
     """Phase 8: the paper's learning loop on the card.  8a trains the §6.2
     factors twice (bit-identical), maps and serves them; 8b runs one epoch
     at MovieLens-20M's shape; 8c learns a drifting 1M-item catalog into a
-    live ``sharded`` service through ``StreamingMF`` and ``PushPolicy``."""
+    live ``sharded`` service through ``StreamingMF`` and ``PushPolicy``;
+    8d runs the paper's §6.2 chain, ``examples/movielens_repro_torch.py``."""
     import dataclasses as dc
 
     from repro_torch.configs import gam_mf
@@ -2393,6 +2557,9 @@ def phase_learning(torch, report):
                       for k, v in recall.items()))
     del live, frozen, fresh, trainer, policy, sim
     torch.cuda.empty_cache()
+
+    # ---- 8d: the paper's §6.2 chain, through the example
+    kernel_rows += phase_repro(torch, out)
     return kernel_rows
 
 
