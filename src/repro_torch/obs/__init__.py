@@ -1,9 +1,10 @@
 """Observability layer of the port: streaming histograms, request tracing,
 the event journal and the metric exporters.
 
-Copies of ``repro.obs.{histogram,tracing,events,exporters}`` (numpy and the
-standard library only), kept in the port so it imports nothing of
-``repro``.
+Copies of ``repro.obs.{histogram,tracing,events,exporters}``, kept in the
+port so it imports nothing of ``repro``: numpy and the standard library,
+and torch's profiler in ``tracing``, whose stages also open ranges on a
+recording ``torch.profiler``'s timeline.
 """
 from repro_torch.obs.events import EventJournal
 from repro_torch.obs.exporters import (JsonlMetricsWriter,

@@ -14,6 +14,16 @@ same monotonically increasing ``trace_id`` to the same request.  Each host
 annotates its spans with its ``host`` id; concatenating the per-host JSONL
 files and grouping on ``trace_id`` reassembles the distributed trace
 (see ``docs/deployment.md``).
+
+Profiler ranges: while a ``torch.profiler`` records in the process, every
+``trace`` / ``span`` / ``trace_or_span`` (of a :class:`Tracer`, sampled or
+not, and of :data:`NOOP_TRACER`) also opens a host range named
+``repro_torch.<stage>`` on the profiler's timeline, so a trace can put the
+card's idle time down to the program's stages.  The range is a kineto
+``cpu_op`` (``_RecordFunctionFast``), never a ``record_function``: that
+one is a user annotation, which kineto mirrors onto the CUDA timeline as a
+range covering the kernels it launched, and a reader of device time would
+count it as busy.  With no profiler recording, a stage costs one check.
 """
 from __future__ import annotations
 
@@ -25,7 +35,13 @@ import random
 import time
 from typing import Any
 
-__all__ = ["NOOP_SPAN", "NOOP_TRACER", "Span", "Tracer"]
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+__all__ = ["NOOP_SPAN", "NOOP_TRACER", "RANGE_PREFIX", "Span", "Tracer"]
+
+#: the prefix of every stage's range on the profiler's timeline
+RANGE_PREFIX = "repro_torch."
 
 
 @dataclasses.dataclass
@@ -76,6 +92,30 @@ class _NoopSpan:
 
 
 NOOP_SPAN = _NoopSpan()
+_NO_RANGE = contextlib.nullcontext(NOOP_SPAN)
+
+
+class _Range:
+    """A stage's range on a recording profiler's timeline; enters as
+    :data:`NOOP_SPAN`."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = _RecordFunctionFast(RANGE_PREFIX + name)
+
+    def __enter__(self) -> _NoopSpan:
+        self._rf.__enter__()
+        return NOOP_SPAN
+
+    def __exit__(self, *exc) -> None:
+        self._rf.__exit__(*exc)
+
+
+def _stage_range(name: str):
+    """The range of stage ``name`` while a profiler records, else a shared
+    do-nothing context (either enters as :data:`NOOP_SPAN`)."""
+    return _Range(name) if _profiler_enabled() else _NO_RANGE
 
 
 class Tracer:
@@ -108,37 +148,41 @@ class Tracer:
         """
         tid = self.n_started
         self.n_started += 1
-        if self.sample_rate <= 0.0 or (self.sample_rate < 1.0 and
-                                       self._rng.random() >= self.sample_rate):
-            yield NOOP_SPAN
-            return
-        self.n_sampled += 1
-        sp = Span(name, self.clock(), tid, host=self.host, attrs=dict(attrs))
-        self._stack.append(sp)
-        try:
-            yield sp
-        finally:
-            sp.t1 = self.clock()
-            self._stack.pop()
-            self.finished.append(sp)
+        with _stage_range(name):
+            if self.sample_rate <= 0.0 or (
+                    self.sample_rate < 1.0
+                    and self._rng.random() >= self.sample_rate):
+                yield NOOP_SPAN
+                return
+            self.n_sampled += 1
+            sp = Span(name, self.clock(), tid, host=self.host,
+                      attrs=dict(attrs))
+            self._stack.append(sp)
+            try:
+                yield sp
+            finally:
+                sp.t1 = self.clock()
+                self._stack.pop()
+                self.finished.append(sp)
 
     @contextlib.contextmanager
     def span(self, name: str, **attrs: Any):
         """Child span under the innermost open span; a cheap no-op when no
         sampled trace is active (so instrumentation can stay unconditional
         on hot paths)."""
-        if not self._stack:
-            yield NOOP_SPAN
-            return
-        sp = Span(name, self.clock(), self._stack[-1].trace_id,
-                  host=self.host, attrs=dict(attrs))
-        self._stack[-1].children.append(sp)
-        self._stack.append(sp)
-        try:
-            yield sp
-        finally:
-            sp.t1 = self.clock()
-            self._stack.pop()
+        with _stage_range(name):
+            if not self._stack:
+                yield NOOP_SPAN
+                return
+            sp = Span(name, self.clock(), self._stack[-1].trace_id,
+                      host=self.host, attrs=dict(attrs))
+            self._stack[-1].children.append(sp)
+            self._stack.append(sp)
+            try:
+                yield sp
+            finally:
+                sp.t1 = self.clock()
+                self._stack.pop()
 
     @contextlib.contextmanager
     def trace_or_span(self, name: str, **attrs: Any):
@@ -177,14 +221,13 @@ class Tracer:
 class _NoopTracer:
     """Module-level default for instrumented components constructed without
     a tracer: every entry point yields :data:`NOOP_SPAN` at one call's cost
-    and never samples."""
+    and never samples (its stages still reach a recording profiler)."""
 
     __slots__ = ()
     active = False
 
-    @contextlib.contextmanager
     def trace(self, name: str, **attrs: Any):
-        yield NOOP_SPAN
+        return _stage_range(name)
 
     span = trace
     trace_or_span = trace

@@ -15,6 +15,7 @@ from __future__ import annotations
 import abc
 import dataclasses
 import importlib
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.core.mapping import GamConfig
 from repro_torch.device import resolve_device
+from repro_torch.obs.tracing import NOOP_TRACER, Tracer
 from repro_torch.retriever.types import RetrievalResult, UnsupportedOp
 
 __all__ = ["BACKEND_IDS", "Retriever", "RetrieverSpec", "available_backends",
@@ -62,6 +64,20 @@ class RetrieverSpec:
             if key == name:
                 return val
         return default
+
+
+def spec_tracer(spec: RetrieverSpec, tracer=None, clock=time.monotonic):
+    """A backend's tracer: ``tracer`` where one is injected, else a
+    :class:`Tracer` sampling at the spec option ``trace_sample`` (seeded by
+    ``trace_seed``) where that is > 0, else the zero-cost
+    :data:`NOOP_TRACER`: tracing is opt-in."""
+    if tracer is not None:
+        return tracer
+    rate = float(spec.opt("trace_sample", 0.0))
+    if rate > 0.0:
+        return Tracer(clock=clock, sample_rate=rate,
+                      seed=int(spec.opt("trace_seed", 0)))
+    return NOOP_TRACER
 
 
 class Retriever(abc.ABC):
@@ -169,7 +185,8 @@ def open_retriever(spec: RetrieverSpec, items: np.ndarray | None = None,
     """Resolve ``spec.backend`` and open a retriever on ``device`` (default
     ``cuda``; raises when no card is present).  With ``items`` the catalog
     is built, with ``snapshot`` restored, with neither left empty.  Extra
-    keyword arguments go to the backend (``sharded`` and
+    keyword arguments go to the backend (``gam`` and ``gam-device``:
+    ``tracer``; ``sharded`` and
     ``sharded-multihost``: ``clock``, ``tracer``, ``qos``, ``faults``, and
     ``mesh``, an ``items`` mesh to place the index over; ``sharded-
     multihost`` checks it and places by host instead).  Inside a

@@ -37,7 +37,7 @@ from repro_torch.kernels.gam_retrieve import (RetrievalMeta,
                                               expand_tile_skips)
 from repro_torch.kernels.gam_score import NEG
 from repro_torch.kernels.ops import gam_retrieve
-from repro_torch.retriever.api import Retriever, RetrieverSpec
+from repro_torch.retriever.api import Retriever, RetrieverSpec, spec_tracer
 from repro_torch.retriever.brute import score_all
 from repro_torch.retriever.convert import (csr_from_reference,
                                            csr_to_reference,
@@ -53,9 +53,11 @@ __all__ = ["GamIndexRetriever"]
 class GamIndexRetriever(Retriever):
     """phi-map + inverted index + exact scores of the candidates."""
 
-    def __init__(self, spec: RetrieverSpec, device: torch.device):
+    def __init__(self, spec: RetrieverSpec, device: torch.device, *,
+                 tracer=None):
         super().__init__(spec, device)
         self.fused = spec.backend == "gam-device"
+        self.tracer = spec_tracer(spec, tracer)
         self._empty()
 
     def _empty(self) -> None:
@@ -170,76 +172,107 @@ class GamIndexRetriever(Retriever):
 
     def query(self, users, kappa=None, *, exact=False,
               explain=False) -> RetrievalResult:
+        """Top-``kappa`` of each user under (score desc, row asc).  The
+        request runs as the tracer's ``query`` with the stages ``map``
+        (users to the device and phi), ``retrieve`` (the launch), ``fetch``
+        (the answer copied to the host, where the host waits for the card)
+        and ``assemble`` (the result built on the host)."""
         kappa = self.spec.kappa if kappa is None else int(kappa)
         users = np.asarray(users, np.float32)
         q = users.shape[0]
-        if self.n_items == 0:
-            exp = ({"backend": self.spec.backend, "n_candidates": [0] * q}
-                   if explain else None)
-            return RetrievalResult(np.full((q, kappa), -1, np.int64),
-                                   np.full((q, kappa), -np.inf, np.float32),
-                                   np.zeros(q, np.int64), np.zeros(q),
-                                   explain=exp)
-        if not self.fused:
-            return self._query_index(users, kappa, exact=exact,
+        with self.tracer.trace_or_span("query", q=q, kappa=kappa):
+            if self.n_items == 0:
+                exp = ({"backend": self.spec.backend,
+                        "n_candidates": [0] * q} if explain else None)
+                return RetrievalResult(
+                    np.full((q, kappa), -1, np.int64),
+                    np.full((q, kappa), -np.inf, np.float32),
+                    np.zeros(q, np.int64), np.zeros(q), explain=exp)
+            if not self.fused:
+                return self._query_index(users, kappa, exact=exact,
+                                         explain=explain)
+            return self._query_fused(users, kappa, exact=exact,
                                      explain=explain)
-        n = self.items.shape[0]
-        u = torch.as_tensor(users, device=self.device)
-        q_tau, q_mask = self._map(u)
+
+    def _query_fused(self, users: np.ndarray, kappa: int, *, exact: bool,
+                     explain: bool) -> RetrievalResult:
+        """``gam-device``: one call of the fused kernel."""
+        tracer = self.tracer
+        n, q = self.items.shape[0], users.shape[0]
+        with tracer.span("map"):
+            u = torch.as_tensor(users, device=self.device)
+            q_tau, q_mask = self._map(u)
         kk = min(kappa, n)
-        res = gam_retrieve(u, self._items_dev, q_tau, q_mask,
-                           self._retrieve_meta, kk,
-                           min_overlap=0 if exact else self.spec.min_overlap,
-                           bq=self.spec.bq,
-                           rerank_factor=self.spec.rerank_factor)
-        vals = res.vals.cpu().numpy()
-        rows = res.rows.cpu().numpy().astype(np.int64)
-        blk_counts = res.blk_counts.cpu().numpy().astype(np.int64)
-        empty = vals <= NEG / 2          # slots no candidate could fill
-        ids_out = np.full((q, kappa), -1, np.int64)
-        sc_out = np.full((q, kappa), -np.inf, np.float32)
-        ids_out[:, :kk] = np.where(empty, -1,
-                                   self.ids[np.clip(rows, 0, n - 1)])
-        sc_out[:, :kk] = np.where(empty, -np.inf, vals)
-        n_scored = blk_counts.sum(axis=1)
-        exp = None
-        if explain:
-            skips = expand_tile_skips(res.skipped.cpu().numpy(), q,
-                                      self.spec.bq)
-            exp = {"backend": "gam-device",
-                   "n_candidates": n_scored.tolist(),
-                   "block_candidates": blk_counts.tolist(),
-                   "blocks_skipped": skips.sum(axis=1).tolist(),
-                   "n_blocks": int(blk_counts.shape[1])}
-        return RetrievalResult(ids=ids_out, scores=sc_out, n_scored=n_scored,
-                               discarded_frac=1.0 - n_scored / n,
-                               explain=exp)
+        with tracer.span("retrieve"):
+            res = gam_retrieve(u, self._items_dev, q_tau, q_mask,
+                               self._retrieve_meta, kk,
+                               min_overlap=0 if exact else
+                               self.spec.min_overlap,
+                               bq=self.spec.bq,
+                               rerank_factor=self.spec.rerank_factor)
+        with tracer.span("fetch"):
+            vals = res.vals.cpu().numpy()
+            rows = res.rows.cpu().numpy()
+            blk_counts = res.blk_counts.cpu().numpy()
+            skipped = res.skipped.cpu().numpy() if explain else None
+        with tracer.span("assemble"):
+            rows = rows.astype(np.int64)
+            blk_counts = blk_counts.astype(np.int64)
+            empty = vals <= NEG / 2          # slots no candidate could fill
+            ids_out = np.full((q, kappa), -1, np.int64)
+            sc_out = np.full((q, kappa), -np.inf, np.float32)
+            ids_out[:, :kk] = np.where(empty, -1,
+                                       self.ids[np.clip(rows, 0, n - 1)])
+            sc_out[:, :kk] = np.where(empty, -np.inf, vals)
+            n_scored = blk_counts.sum(axis=1)
+            exp = None
+            if explain:
+                skips = expand_tile_skips(skipped, q, self.spec.bq)
+                exp = {"backend": "gam-device",
+                       "n_candidates": n_scored.tolist(),
+                       "block_candidates": blk_counts.tolist(),
+                       "blocks_skipped": skips.sum(axis=1).tolist(),
+                       "n_blocks": int(blk_counts.shape[1])}
+            return RetrievalResult(ids=ids_out, scores=sc_out,
+                                   n_scored=n_scored,
+                                   discarded_frac=1.0 - n_scored / n,
+                                   explain=exp)
 
     def _query_index(self, users: np.ndarray, kappa: int, *, exact: bool,
                      explain: bool) -> RetrievalResult:
         """``gam``: the posting walk's candidates, scored exactly in f32
-        under (score desc, row asc); ``exact=True`` is ``brute``'s answer."""
+        under (score desc, row asc); ``exact=True`` is ``brute``'s answer
+        (one ``retrieve`` stage, scored and copied to the host together)."""
+        tracer = self.tracer
         n, q = self.items.shape[0], users.shape[0]
         if exact:
-            ids_out, sc_out = score_all(self.ids, self._items_dev, users,
-                                        kappa)
+            with tracer.span("retrieve"):
+                ids_out, sc_out = score_all(self.ids, self._items_dev, users,
+                                            kappa)
             n_scored = np.full(q, n, np.int64)
         else:
-            u = torch.as_tensor(users, device=self.device)
-            q_tau, q_mask = self._map(u)
-            qrow, rows, _ = self.index.candidates(q_tau, self.spec.min_overlap,
-                                                  q_mask)
-            vals, top, counts = candidate_topk(u, self._items_dev, qrow, rows,
-                                               kappa)
-            top = top.cpu().numpy()
-            ids_out = np.where(top >= 0, self.ids[np.clip(top, 0, n - 1)], -1)
-            sc_out = vals.cpu().numpy()
-            n_scored = counts.cpu().numpy()
-        exp = ({"backend": "gam", "n_candidates": n_scored.tolist()}
-               if explain else None)
-        return RetrievalResult(ids=ids_out, scores=sc_out, n_scored=n_scored,
-                               discarded_frac=1.0 - n_scored / n,
-                               explain=exp)
+            with tracer.span("map"):
+                u = torch.as_tensor(users, device=self.device)
+                q_tau, q_mask = self._map(u)
+            with tracer.span("retrieve"):
+                qrow, rows, _ = self.index.candidates(
+                    q_tau, self.spec.min_overlap, q_mask)
+                vals, top, counts = candidate_topk(u, self._items_dev, qrow,
+                                                   rows, kappa)
+            with tracer.span("fetch"):
+                top = top.cpu().numpy()
+                sc_out = vals.cpu().numpy()
+                n_scored = counts.cpu().numpy()
+        with tracer.span("assemble"):
+            if not exact:
+                ids_out = np.where(top >= 0,
+                                   self.ids[np.clip(top, 0, n - 1)], -1)
+            exp = ({"backend": "gam", "n_candidates": n_scored.tolist()}
+                   if explain else None)
+            return RetrievalResult(ids=ids_out, scores=sc_out,
+                                   n_scored=n_scored,
+                                   discarded_frac=1.0 - n_scored / n,
+                                   explain=exp)
 
     def candidate_masks(self, users) -> torch.Tensor:
         """(Q, N) bool candidate masks on the retriever's device

@@ -650,7 +650,8 @@ class MultiHostShardedRetriever(ShardedRetriever):
             tile_num = sum(f * nb for f, nb in tiles)
             tile_den = sum(nb for _, nb in tiles)
         self.metrics.record_host_queries(per_host)
-        ids = base.rows_to_ids(rows, scores)
+        with self.tracer.span("assemble"):
+            ids = base.rows_to_ids(rows, scores)
         frac = tile_num / tile_den if tile_den else 0.0
         stats = {"shard_candidates": cand, "block_candidates": blocks,
                  "tiles_skipped_frac": float(frac)}

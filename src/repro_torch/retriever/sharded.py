@@ -67,8 +67,7 @@ from repro_torch.core.mapping import sparse_map
 from repro_torch.kernels.gam_retrieve import RetrievalMeta
 from repro_torch.kernels.gam_score import NEG
 from repro_torch.obs.events import EventJournal
-from repro_torch.obs.tracing import NOOP_TRACER, Tracer
-from repro_torch.retriever.api import Retriever, RetrieverSpec
+from repro_torch.retriever.api import Retriever, RetrieverSpec, spec_tracer
 from repro_torch.retriever.convert import _bits
 from repro_torch.retriever.snapshot import read_snapshot, write_snapshot
 from repro_torch.retriever.types import RetrievalResult, UnsupportedOp
@@ -106,16 +105,7 @@ class ShardedRetriever(Retriever):
         self._cost_est: float | None = None    # EWMA full-query seconds
         self.catalog: dict[int, np.ndarray] = {}
         self.metrics = ServiceMetrics(clock)
-        # tracing is opt-in: spec option trace_sample > 0 (or an injected
-        # tracer) — everything else runs through the zero-cost noop
-        rate = float(spec.opt("trace_sample", 0.0))
-        if tracer is not None:
-            self.tracer = tracer
-        elif rate > 0.0:
-            self.tracer = Tracer(clock=clock, sample_rate=rate,
-                                 seed=int(spec.opt("trace_seed", 0)))
-        else:
-            self.tracer = NOOP_TRACER
+        self.tracer = spec_tracer(spec, tracer, clock)
         # flight recorder of lifecycle events (compaction phases,
         # repartitions, failovers); named `events` — `journal` is taken by
         # the CompactionPlanner's mutation-replay log
@@ -546,7 +536,7 @@ class ShardedRetriever(Retriever):
                 with self.tracer.span("delta", n_delta=len(self.delta)):
                     d_scores, d_ids, d_cand = self.delta.query(
                         users_j, tau, q_mask, kappa, exact=eff_exact,
-                        min_overlap=eff_overlap)
+                        min_overlap=eff_overlap, tracer=self.tracer)
 
             with self.tracer.span("merge", kappa=kappa):
                 cat_scores = np.concatenate([b_scores, d_scores], axis=1)
@@ -557,38 +547,43 @@ class ShardedRetriever(Retriever):
                 top_ids = np.take_along_axis(cat_ids, order, axis=-1)
                 top_scores = np.take_along_axis(cat_scores, order, axis=-1)
 
-        ids_out = np.full((q, kappa), -1, np.int64)
-        sc_out = np.full((q, kappa), -np.inf, np.float32)
-        kk = top_ids.shape[1]
-        real = top_scores > NEG / 2
-        ids_out[:, :kk] = np.where(real, top_ids, -1)
-        sc_out[:, :kk] = np.where(real, top_scores, -np.inf)
+            with self.tracer.span("assemble"):
+                ids_out = np.full((q, kappa), -1, np.int64)
+                sc_out = np.full((q, kappa), -np.inf, np.float32)
+                kk = top_ids.shape[1]
+                real = top_scores > NEG / 2
+                ids_out[:, :kk] = np.where(real, top_ids, -1)
+                sc_out[:, :kk] = np.where(real, top_scores, -np.inf)
 
-        n_live = self.base.n_live + len(self.delta)
-        n_cand = base_stats["shard_candidates"].sum(axis=-1) + d_cand
-        discard = 1.0 - n_cand / max(n_live, 1)
-        self._last_query_stats = {
-            k: v for k, v in base_stats.items() if k != "tile_skips"}
-        self._last_query_stats["discard"] = discard
-        exp = None
-        if explain:
-            # provenance of each winning slot: merge column < base width
-            # means the hit came from the compacted base tier
-            src = np.full((q, kappa), "", object)
-            src[:, :kk] = np.where(real, np.where(order < b_ids.shape[1],
-                                                  "base", "delta"), "")
-            exp = {
-                "backend": self.spec.backend,
-                "n_candidates": np.asarray(n_cand, np.int64).tolist(),
-                "shard_candidates": np.asarray(
-                    base_stats["shard_candidates"], np.int64).tolist(),
-                "delta_candidates": np.asarray(d_cand, np.int64).tolist(),
-                "source": src.tolist(),
-                "degraded": degraded,
-                "degrade_rung": applied[-1] if degraded else None,
-            }
-            exp.update(self._explain_base(ids_out, src == "base",
-                                          base_stats))
+                n_live = self.base.n_live + len(self.delta)
+                n_cand = (base_stats["shard_candidates"].sum(axis=-1)
+                          + d_cand)
+                discard = 1.0 - n_cand / max(n_live, 1)
+                self._last_query_stats = {
+                    k: v for k, v in base_stats.items() if k != "tile_skips"}
+                self._last_query_stats["discard"] = discard
+                exp = None
+                if explain:
+                    # provenance of each winning slot: merge column < base
+                    # width means the hit came from the compacted base tier
+                    src = np.full((q, kappa), "", object)
+                    src[:, :kk] = np.where(
+                        real, np.where(order < b_ids.shape[1], "base",
+                                       "delta"), "")
+                    exp = {
+                        "backend": self.spec.backend,
+                        "n_candidates": np.asarray(n_cand,
+                                                   np.int64).tolist(),
+                        "shard_candidates": np.asarray(
+                            base_stats["shard_candidates"], np.int64).tolist(),
+                        "delta_candidates": np.asarray(d_cand,
+                                                       np.int64).tolist(),
+                        "source": src.tolist(),
+                        "degraded": degraded,
+                        "degrade_rung": applied[-1] if degraded else None,
+                    }
+                    exp.update(self._explain_base(ids_out, src == "base",
+                                                  base_stats))
         if degraded:
             self.metrics.record_degraded(applied[-1])
             # decay the estimate while degrading, so one cost spike (e.g. a
@@ -674,14 +669,17 @@ class ShardedRetriever(Retriever):
         when ``explain`` asks for them).  The ``sharded-multihost`` backend
         overrides this with the routed per-host computation + collective
         merge; everything around it (phi-mapping, delta merge, padding,
-        metrics) is shared."""
+        metrics) is shared.  The answer's copies to the host run under a
+        ``fetch`` span inside ``base``, the row-to-id lookup under
+        ``assemble``."""
         with self.tracer.span("base", exact=exact):
             res = self.base.query(users_j, q_tau, q_mask, kappa, exact=exact,
                                   tracer=self.tracer,
                                   collect_tile_skips=explain,
                                   min_overlap=min_overlap)
-        scores = np.asarray(res.scores, np.float32)
-        ids = self.base.rows_to_ids(np.asarray(res.rows), scores)
+        with self.tracer.span("assemble"):
+            scores = np.asarray(res.scores, np.float32)
+            ids = self.base.rows_to_ids(np.asarray(res.rows), scores)
         stats = {"shard_candidates": np.asarray(res.shard_candidates),
                  "block_candidates": res.block_candidates,
                  "tiles_skipped_frac": res.tiles_skipped_frac}

@@ -25,6 +25,7 @@ from repro_torch.core.mapping import GamConfig, sparse_map
 from repro_torch.device import resolve_device
 from repro_torch.kernels.gam_retrieve import build_retrieval_meta
 from repro_torch.kernels.ops import gam_retrieve
+from repro_torch.obs.tracing import NOOP_TRACER
 from repro_torch.retriever.types import dedupe_last_write
 
 __all__ = ["DeltaSegment"]
@@ -122,12 +123,14 @@ class DeltaSegment:
     # ---------------------------------------------------------- query
 
     def query(self, users, q_tau, q_mask, kappa: int, *,
-              exact: bool = False, min_overlap: int | None = None):
+              exact: bool = False, min_overlap: int | None = None,
+              tracer=NOOP_TRACER):
         """-> (scores (Q, kk) f32 with NEG pads, catalog ids (Q, kk) int64,
         candidates (Q,) int64) over the delta rows only; kk = min(kappa,
         len(self)).  ``users``/``q_tau``/``q_mask`` lie on the segment's
         device.  ``min_overlap`` overrides the segment's prune threshold
-        (the QoS degrade ladder raises it under deadline pressure)."""
+        (the QoS degrade ladder raises it under deadline pressure).  The
+        answer's copies to the host run under ``tracer``'s ``fetch``."""
         if not len(self):
             q = int(users.shape[0])
             return (np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int64),
@@ -141,10 +144,12 @@ class DeltaSegment:
                            min_overlap=0 if exact else mo,
                            alive=self._alive,
                            rerank_factor=self.rerank_factor)
-        n_cand = res.blk_counts.cpu().numpy().astype(np.int64).sum(axis=1)
+        with tracer.span("fetch"):
+            blk = res.blk_counts.cpu().numpy()
+            rows = res.rows.cpu().numpy()
+            vals = res.vals.cpu().numpy()
+        n_cand = blk.astype(np.int64).sum(axis=1)
         # empty (NEG-scored) slots carry row -1; clip before the id gather
         # (the caller replaces their ids via the NEG-score filter anyway)
-        local = np.clip(res.rows.cpu().numpy().astype(np.int64), 0,
-                        len(self) - 1)
-        return res.vals.cpu().numpy().astype(np.float32), self.ids[local], \
-            n_cand
+        local = np.clip(rows.astype(np.int64), 0, len(self) - 1)
+        return vals.astype(np.float32), self.ids[local], n_cand

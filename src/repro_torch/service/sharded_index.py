@@ -556,7 +556,8 @@ class ShardedGamIndex:
         same (score desc, global row asc) order.  ``exact=True`` scores
         every live row through the same kernel (``min_overlap=0``).
 
-        ``tracer`` wraps each per-group launch and the host merge in spans;
+        ``tracer`` wraps each per-group launch, the copies of the answers
+        to the host (``fetch``) and the host merge in spans;
         ``collect_tile_skips`` also expands the kernel's per-query-block
         skip map to a per-query (Q, n_blocks) bool in
         ``ShardTopK.tile_skips`` (host numpy over existing outputs)."""
@@ -577,9 +578,11 @@ class ShardedGamIndex:
                     users, self.factors_g[g], q_tau, q_mask, meta, kappa,
                     min_overlap=mo, alive=self.alive_g[g],
                     rerank_factor=self.rerank_factor))
-        host = [(r.vals.cpu().numpy(), r.rows.cpu().numpy(),
-                 r.blk_counts.cpu().numpy().astype(np.int64),
-                 r.skipped.cpu().numpy()) for r in results]
+        with tracer.span("fetch"):
+            host = [(r.vals.cpu().numpy(), r.rows.cpu().numpy(),
+                     r.blk_counts.cpu().numpy(), r.skipped.cpu().numpy())
+                    for r in results]
+        host = [(v, r, b.astype(np.int64), sk) for v, r, b, sk in host]
         skips = (np.concatenate([expand_tile_skips(sk, q)
                                  for _, _, _, sk in host], axis=1)
                  if collect_tile_skips and host else None)
@@ -647,11 +650,11 @@ class ShardedGamIndex:
                                    kappa, min_overlap=mo,
                                    alive=self.alive_g[0])
         with tracer.span("mesh_merge", ranks=self._group.size()):
-            vals, rows = export_topk(res.vals.cpu().numpy(),
-                                     res.rows.cpu().numpy(),
-                                     offset=self.row_lo)
-            blk = res.blk_counts.cpu().numpy()
-            sk = res.skipped.cpu().numpy()
+            with tracer.span("fetch"):
+                vals, rows, blk, sk = (
+                    t.cpu().numpy() for t in (res.vals, res.rows,
+                                              res.blk_counts, res.skipped))
+            vals, rows = export_topk(vals, rows, offset=self.row_lo)
             cols = [blk]
             if collect_tile_skips:
                 cols.append(expand_tile_skips(sk, q))
