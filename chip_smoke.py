@@ -2067,8 +2067,33 @@ def retrieve_work(torch, args, kw, got) -> tuple[float, float]:
                          meta.bn)
     n_bytes = (q * k * (f + 1 + f) + nb * (words * f + 1)
                + blocks * bn * (words * f + 2) + q * nb * f + qb * nb
-               + int(rows.sum()) * k * f + q * kappa * 2 * f)
+               + int(rows.sum()) * k * f + q * kappa * 2 * f
+               + got.seg_counts.numel() * f)
     return n_bytes, 2 * k * int(got.blk_counts.sum())
+
+
+def check_segment_sums(torch, call, q: int, n_blocks: int, where: str
+                       ) -> str:
+    """``call(rows, segments)`` (a fused retrieval over the first ``rows``
+    queries) must give ``seg_counts`` equal to its ``blk_counts`` summed by
+    segment, bit for bit: at one segment and at eight uneven ones, for ``q``
+    queries and for ``q - 1`` (not a multiple of the merge kernel's four
+    warps).  -> the line to print."""
+    eight = (0, 1, 3, n_blocks // 5, n_blocks // 3, n_blocks // 2,
+             n_blocks - 9, n_blocks - 1)
+    for rows in (q, q - 1):
+        for seg in (None, eight):
+            got = call(rows, seg)
+            blk = got.blk_counts.long()
+            starts = [0] if seg is None else list(seg)
+            want = torch.stack([blk[:, a:b].sum(1) for a, b in
+                                zip(starts, starts[1:] + [n_blocks])], 1)
+            fail_unless(got.seg_counts.shape == want.shape
+                        and torch.equal(got.seg_counts.long(), want),
+                        f"{where}: seg_counts differ from blk_counts summed "
+                        f"by segment (Q {rows}, segments {seg})")
+    return (f"{where}: seg_counts = blk_counts by segment (1 and 8 "
+            f"segments, Q {q} and {q - 1})")
 
 
 def learning_kernel_rows(torch, cap_r, cap_t, cap_s, launches, where):
@@ -5013,6 +5038,14 @@ def main() -> int:
                              False, dev)
     print(f"gam_retrieve vs plain ({route['route']} route, {route}): "
           f"rows/counts/skip exact, max ulp {max_ulp(gv, wv)}")
+    for width in (KAPPA, WIDE_POOL):           # the fast and the wide route
+        way = gr.retrieve_plan(BATCH, K, meta.words, width, meta.n_blocks,
+                               False, dev)["route"]
+        print(check_segment_sums(
+            torch, lambda n, seg: gr.gam_retrieve(
+                u0[:n], r0._items_dev, q_tau[:n], q_mask[:n], meta, width,
+                segments=seg, **kw),
+            BATCH, meta.n_blocks, f"gam_retrieve, kappa {width}, {way}"))
 
     zt = torch.where(items_t.abs() >= THRESHOLD, items_t, 0.0).contiguous()
     pat, a = tp.tess_project(zt)
@@ -5060,6 +5093,7 @@ def main() -> int:
     torch.cuda.synchronize()
     report["build_catalog_s"] = time.perf_counter() - t0
     lat, answers = [], []
+    fetched = (gr.fetch_answer.summed, gr.fetch_answer.full)
     for i, users in enumerate(reqs):
         t0 = time.perf_counter()
         res = r.query(users)
@@ -5067,6 +5101,9 @@ def main() -> int:
         if i:                                   # request 0 warms up
             lat.append(dt * 1e3)
             answers.append(res)
+    fail_unless((gr.fetch_answer.summed, gr.fetch_answer.full)
+                == (fetched[0] + len(reqs), fetched[1]),
+                "a request without explain copied the (Q, blocks) counts")
     for users, res in zip(reqs[1:], answers):
         fail_unless(res.ids.shape == (BATCH, KAPPA), "result shape")
         fail_unless(np.isfinite(res.scores[res.ids >= 0]).all(),
@@ -5217,6 +5254,14 @@ def main() -> int:
                                True, dev)
     print(f"gam_retrieve_q vs plain ({route_q['route']} route, {route_q}): "
           f"rows/counts/skip exact, max ulp {max_ulp(gv, wv)}")
+    for width in (pool, WIDE_POOL):            # the fast and the wide route
+        way = gr.retrieve_plan(BATCH, K, qmeta.words, width, qmeta.n_blocks,
+                               True, dev)["route"]
+        print(check_segment_sums(
+            torch, lambda n, seg: gr.gam_retrieve_q(
+                u0[:n], uq_tau[:n], uq_mask[:n], qmeta, width, segments=seg,
+                **kw),
+            BATCH, qmeta.n_blocks, f"gam_retrieve_q, pool {width}, {way}"))
     # a pool past the shared-memory lists: kappa-lists in global memory
     wqargs = (u0, uq_tau, uq_mask, qmeta, WIDE_POOL)
     got_w = gr.gam_retrieve_q(*wqargs, **kw)

@@ -53,32 +53,37 @@ def gam_score(u, v, mask):
             + q * n * (mask.element_size() + _F32))
 
 
-def _retrieve(users, meta, kappa: int, bq: int, factor_bytes: int):
+def _retrieve(users, meta, kappa: int, bq: int, segments,
+              factor_bytes: int):
     from repro_torch.kernels.gam_retrieve import effective_bq
     q, k = users.shape
     nb, words, bn = meta.n_blocks, meta.words, meta.bn
     qb = -(-q // effective_bq(q, bq))
+    n_seg = 1 if segments is None else len(segments)
     n_bytes = (q * k * (_F32 + 1 + _F32)            # users, mask, tau
                + nb * (words * _F32 + 1)            # block unions, spill
                + nb * bn * (words * _F32 + 2)       # item bits, spill, alive
                + q * nb * _F32 + qb * nb            # counts, skip map out
                + factor_bytes                       # the scored rows
-               + q * kappa * 2 * _F32)              # the top-kappa out
+               + q * kappa * 2 * _F32               # the top-kappa out
+               + q * n_seg * _F32)                  # the segment sums out
     return {"f32": 2.0 * k * q * meta.n_rows}, n_bytes
 
 
 def gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, *, bq=32,
-                 **_):
+                 segments=None, **_):
     """chip_smoke's ``retrieve_work`` with every block kept and every row
     a candidate."""
     k = users.shape[1]
-    return _retrieve(users, meta, int(kappa), bq, meta.n_rows * k * _F32)
+    return _retrieve(users, meta, int(kappa), bq, segments,
+                     meta.n_rows * k * _F32)
 
 
-def gam_retrieve_pool(users, q_tau, q_mask, meta, pool, *, bq=32, **_):
+def gam_retrieve_pool(users, q_tau, q_mask, meta, pool, *, bq=32,
+                      segments=None, **_):
     """As :func:`gam_retrieve` on the int8 slab and its block scales."""
     k = users.shape[1]
-    return _retrieve(users, meta, int(pool), bq,
+    return _retrieve(users, meta, int(pool), bq, segments,
                      meta.n_pad * k + meta.n_blocks * _F32)
 
 
@@ -145,11 +150,14 @@ def meta_outputs(name: str, *args, **kw):
     width = int(args[5] if name == "gam_retrieve" else args[4])
     q, nb = users.shape[0], meta_.n_blocks
     qb = -(-q // effective_bq(q, kw.get("bq", 32)))
+    segments = kw.get("segments")
+    n_seg = 1 if segments is None else len(segments)
     return GamRetrieveResult(
         torch.empty((q, width), dtype=torch.float32, device=meta),
         torch.empty((q, width), dtype=torch.int32, device=meta),
         torch.empty((q, nb), dtype=torch.int32, device=meta),
-        torch.empty((qb, nb), dtype=torch.bool, device=meta))
+        torch.empty((qb, nb), dtype=torch.bool, device=meta),
+        torch.empty((q, n_seg), dtype=torch.int32, device=meta))
 
 
 def active_counters() -> list:

@@ -15,8 +15,9 @@
 // __fmul_rn((float)q, scale), the reference's `v.astype(f32) * sc`, :335;
 // the explicit multiply keeps nvcc from contracting it into the fma).  It
 // keeps the top kappa under the total order (score desc, row asc), the
-// per-(query, item block) candidate counts and the (query tile, item block)
-// skip map of the block-union prepass.  Empty slots come back as (NEG, -1).
+// per-(query, item block) candidate counts, their sums over segments of
+// blocks (the caller's shards) and the (query tile, item block) skip map of
+// the block-union prepass.  Empty slots come back as (NEG, -1).
 //
 // Four kernels, launched in order on one stream by either entry:
 //  1. pack_kernel: the query patterns as bitsets, one thread a word.
@@ -103,7 +104,13 @@
 //       shared memory (U_SMEM: k <= SMEM_K) or read from global memory.  It
 //       re-reads every kept tile once per query.
 //  4. merge_kernel: one warp a query merges the per-split sorted lists by a
-//     tournament over their heads, kappa rounds of a warp arg-max.
+//     tournament over their heads, kappa rounds of a warp arg-max.  First the
+//     warp sums the query's row of blk_counts by segment (S segments, given
+//     as S + 1 block offsets `seg`): lanes strided over a segment's blocks,
+//     then a warp reduction, into seg_counts[q][s].  The sums are exact
+//     integers (at most n_rows < 2^30), need no atomics and do not depend on
+//     `splits`; both routes end here, so the host can copy (Q, S) sums
+//     instead of the (Q, n_blocks) counts.
 //
 // Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32, 132 SMs at 1.98 GHz), each
 // input counted once: the bytes are the bitsets and flags of the unskipped
@@ -780,7 +787,10 @@ __global__ void wide_kernel(
   }
 }
 
-// One warp a query: a tournament over the splits' sorted lists.  Lane l
+// One warp a query.  First the query's candidates by segment: seg_counts
+// [qq][s] sums counts[qq][seg[s] .. seg[s + 1]), the lanes strided over the
+// blocks (coalesced; the row was just written, mostly still in L2), then a
+// warp reduction.  Then a tournament over the splits' sorted lists.  Lane l
 // holds the heads of splits l, l + 32, ... (their positions in shared
 // memory) and its best head; each round a warp arg-max under (score desc,
 // row asc) takes the winner, and its lane advances that split's head.  Rows
@@ -789,13 +799,23 @@ __global__ void wide_kernel(
 #define MERGE_WARPS 4
 __global__ void merge_kernel(const float* __restrict__ part_s,
                              const int32_t* __restrict__ part_r,
+                             const int32_t* __restrict__ counts,
+                             const int32_t* __restrict__ seg,
                              float* __restrict__ vals,
-                             int32_t* __restrict__ rows, int q, int splits,
-                             int kappa) {
+                             int32_t* __restrict__ rows,
+                             int32_t* __restrict__ seg_counts, int q,
+                             int splits, int kappa, int nb, int nseg) {
   extern __shared__ int heads[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int qq = blockIdx.x * MERGE_WARPS + warp;
   if (qq >= q) return;
+  const int32_t* crow = counts + (int64_t)qq * nb;
+  for (int s = 0; s < nseg; ++s) {
+    int c = 0;
+    for (int b = seg[s] + lane; b < seg[s + 1]; b += 32) c += crow[b];
+    c = __reduce_add_sync(FULL_MASK, c);
+    if (lane == 0) seg_counts[(int64_t)qq * nseg + s] = c;
+  }
   int* head = heads + warp * splits;
   for (int t = lane; t < kappa; t += 32) {
     vals[(int64_t)qq * kappa + t] = NEG_SCORE;
@@ -952,10 +972,12 @@ struct Args {            // one call: its arrays and shape
   int32_t* part_r;
   float* vals;
   int32_t* rows;
+  const int32_t* seg;                // (nseg + 1,) block offsets of segments
+  int32_t* seg_counts;               // (q, nseg) candidates by segment
   int q, k, words;
   int64_t n_pad, n_rows, fac_rows;
   int bn, nb, bq, qblocks, kappa, min_overlap;
-  int route, mt, splits, blocks_per_split;
+  int route, mt, splits, blocks_per_split, nseg;
 };
 
 template <typename T>
@@ -1018,7 +1040,8 @@ static int launch(const Args& a, cudaStream_t st) {
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<ceil_div(a.q, MERGE_WARPS), 32 * MERGE_WARPS,
                  MERGE_WARPS * a.splits * sizeof(int), st>>>(
-      a.part_s, a.part_r, a.vals, a.rows, a.q, a.splits, a.kappa);
+      a.part_s, a.part_r, a.counts, a.seg, a.vals, a.rows, a.seg_counts, a.q,
+      a.splits, a.kappa, a.nb, a.nseg);
   return (int)cudaGetLastError();
 }
 
@@ -1027,18 +1050,21 @@ static int launch(const Args& a, cudaStream_t st) {
 // scales); q_tau (q, k) int32 and q_mask (q, k) bool; item_bits_t (words,
 // n_pad) int32; block_union (n_blocks, words) int32; block_spill
 // (n_blocks,) bool; spill8 (n_pad,) int8; alive (n_rows,) bool or null;
-// scratch qbits (q, words) int32; outputs skip (qblocks, n_blocks) bool,
-// counts (q, n_blocks) int32, part_s / part_r (splits, q, kappa), vals /
-// rows (q, kappa).  route .. blocks_per_split come from gam_retrieve_plan.
+// scratch qbits (q, words) int32; seg (nseg + 1,) int32, the block offsets
+// of nseg segments; outputs skip (qblocks, n_blocks) bool, counts (q,
+// n_blocks) int32, part_s / part_r (splits, q, kappa), vals / rows (q,
+// kappa), seg_counts (q, nseg) int32.  route .. blocks_per_split come from
+// gam_retrieve_plan.
 #define ENTRY_ARGS                                                          \
   const void *users, const void *factors, const void *scales,              \
       const void *q_tau, const void *q_mask, const void *item_bits_t,      \
       const void *block_union, const void *block_spill, const void *spill8, \
       const void *alive, void *qbits, void *skip, void *counts,            \
-      void *part_s, void *part_r, void *vals, void *rows, int q, int k,    \
-      int words, int64_t n_pad, int64_t n_rows, int bn, int nb, int bq,    \
-      int qblocks, int kappa, int min_overlap, int route, int mt,          \
-      int splits, int blocks_per_split, void *stream
+      void *part_s, void *part_r, void *vals, void *rows, const void *seg, \
+      void *seg_counts, int q, int k, int words, int64_t n_pad,            \
+      int64_t n_rows, int bn, int nb, int bq, int qblocks, int kappa,      \
+      int min_overlap, int route, int mt, int splits,                      \
+      int blocks_per_split, int nseg, void *stream
 #define MAKE_ARGS(FAC_ROWS)                                                 \
   Args a{(const float*)users, factors, (const float*)scales,               \
          (const int32_t*)q_tau, (const uint8_t*)q_mask,                    \
@@ -1046,8 +1072,9 @@ static int launch(const Args& a, cudaStream_t st) {
          (const uint8_t*)block_spill, (const int8_t*)spill8,               \
          (const uint8_t*)alive, (int32_t*)qbits, (uint8_t*)skip,           \
          (int32_t*)counts, (float*)part_s, (int32_t*)part_r, (float*)vals, \
-         (int32_t*)rows, q, k, words, n_pad, n_rows, FAC_ROWS, bn, nb, bq, \
-         qblocks, kappa, min_overlap, route, mt, splits, blocks_per_split}
+         (int32_t*)rows, (const int32_t*)seg, (int32_t*)seg_counts, q, k,  \
+         words, n_pad, n_rows, FAC_ROWS, bn, nb, bq, qblocks, kappa,       \
+         min_overlap, route, mt, splits, blocks_per_split, nseg}
 
 // f32 factor rows (n_rows, k); `scales` is ignored.
 extern "C" int gam_retrieve_f32(ENTRY_ARGS) {

@@ -10,7 +10,10 @@ and the bit pattern is all the kernel reads.  Snapshots convert back to ``uint32
 ``gam_retrieve_plain`` is its plain PyTorch version, which walks the item
 axis in chunks so a catalog of millions of rows fits in memory.  Both
 realise the total order (score desc, row asc) over candidates with the same
-f32 arithmetic, so they agree bit for bit.
+f32 arithmetic, so they agree bit for bit.  Both also sum each query's
+per-block candidate counts over ``segments`` of blocks (a shard each, or
+one over the whole catalog), so :func:`fetch_answer` copies the (Q, S) sums
+to the host and leaves the (Q, n_blocks) counts on the device.
 
 The int8 path (``meta.quantize == "int8"``, slab attached by
 :func:`quantize_meta`): ``gam_retrieve_q`` launches the kernel's int8 entry
@@ -36,7 +39,7 @@ from repro_torch.kernels.gam_score import NEG, dot_plain, fma_dot
 __all__ = ["GAM_RETRIEVE_SMEM_K", "GAM_RETRIEVE_SMEM_KAPPA", "GamRetrieveResult",
            "ROW_CAPACITY", "RetrievalMeta", "RowCapacityError",
            "TOPK_EMPTY_ROW", "build_retrieval_meta", "effective_bq",
-           "expand_tile_skips", "export_topk", "gam_retrieve",
+           "expand_tile_skips", "export_topk", "fetch_answer", "gam_retrieve",
            "gam_retrieve_plain", "gam_retrieve_q", "gam_retrieve_q_plain",
            "pack_patterns", "popcount32", "quantize_meta", "rerank_pool",
            "retrieve_plan"]
@@ -226,6 +229,75 @@ class GamRetrieveResult(NamedTuple):
     rows: torch.Tensor        # (Q, kappa) int32 global rows, -1 in empty slots
     blk_counts: torch.Tensor  # (Q, n_blocks) int32 candidates per item block
     skipped: torch.Tensor     # (q_blocks, n_blocks) bool: tiles never scored
+    seg_counts: torch.Tensor | None = None  # (Q, S) int32: by segment
+
+
+_BOUNDS: dict = {}
+
+
+def _segment_bounds(segments, n_blocks: int) -> tuple:
+    """The S + 1 block offsets of the segments that start at the blocks
+    ``segments`` (the first 0, non-decreasing; ``None``: one segment over
+    every block); the last segment ends at ``n_blocks``."""
+    starts = (0,) if segments is None else tuple(int(b) for b in segments)
+    if (not starts or starts[0] != 0 or starts[-1] > n_blocks
+            or any(b < a for a, b in zip(starts, starts[1:]))):
+        raise ValueError(f"segments must start at block 0 and rise to at "
+                         f"most {n_blocks}, got {starts}")
+    return starts + (int(n_blocks),)
+
+
+def _bounds_tensor(bounds: tuple, device) -> torch.Tensor:
+    """``bounds`` as an int32 tensor on ``device``, made once and reused, so
+    a request copies no offsets to the card."""
+    key = (str(device), bounds)
+    t = _BOUNDS.get(key)
+    if t is None:
+        if len(_BOUNDS) >= 256:         # repartitions make new layouts
+            _BOUNDS.clear()
+        t = _BOUNDS[key] = torch.tensor(bounds, dtype=torch.int32,
+                                        device=device)
+    return t
+
+
+def _segment_sums(counts: torch.Tensor, bounds: tuple) -> torch.Tensor:
+    """(Q, n_blocks) int32 counts -> (Q, S) int32 sums over the segments
+    [bounds[s], bounds[s + 1]): exact, as the kernel's."""
+    run = torch.nn.functional.pad(counts.cumsum(1, dtype=torch.int64), (1, 0))
+    b = torch.as_tensor(bounds, device=counts.device)
+    return (run[:, b[1:]] - run[:, b[:-1]]).to(torch.int32)
+
+
+class Answer(NamedTuple):
+    """A call's answer on the host (:func:`fetch_answer`)."""
+    vals: np.ndarray               # (Q, kappa) f32
+    rows: np.ndarray               # (Q, kappa) int32
+    seg_counts: np.ndarray         # (Q, S) int64 candidates by segment
+    blk_counts: np.ndarray | None  # (Q, n_blocks) int32, under full_counts
+    skipped: np.ndarray | None     # (q_blocks, n_blocks) bool, likewise
+    nbytes: int                    # bytes copied from the device
+
+
+def fetch_answer(res: GamRetrieveResult, *, full_counts: bool) -> Answer:
+    """Copy a call's answer to the host: the (Q, kappa) scores and rows and
+    the (Q, S) candidate sums (widened to int64), and only under
+    ``full_counts`` (``explain``) the (Q, n_blocks) counts and the skip map.
+    ``fetch_answer.summed`` / ``.full`` count the answers fetched each way."""
+    host = [res.vals.cpu().numpy(), res.rows.cpu().numpy(),
+            res.seg_counts.cpu().numpy()]
+    if full_counts:
+        host += [res.blk_counts.cpu().numpy(), res.skipped.cpu().numpy()]
+        fetch_answer.full += 1
+    else:
+        host += [None, None]
+        fetch_answer.summed += 1
+    nbytes = sum(a.nbytes for a in host if a is not None)
+    host[2] = host[2].astype(np.int64)
+    return Answer(*host, nbytes)
+
+
+fetch_answer.summed = 0
+fetch_answer.full = 0
 
 
 def _skip_map(q_bits, meta: RetrievalMeta, min_overlap: int, bq: int):
@@ -249,10 +321,11 @@ def _alive8(alive, meta: RetrievalMeta, device) -> torch.Tensor:
 
 
 def _plain_walk(users, rows_f32, q_tau, q_mask, meta: RetrievalMeta,
-                kappa: int, min_overlap: int, alive, bq: int
+                kappa: int, min_overlap: int, alive, bq: int, segments
                 ) -> GamRetrieveResult:
     """The plain item walk; ``rows_f32(lo, hi)`` gives the f32 factor rows
     lo..hi-1 that are scored."""
+    bounds = _segment_bounds(segments, meta.n_blocks)
     q = users.shape[0]
     dev = users.device
     bq = effective_bq(q, bq)
@@ -288,20 +361,21 @@ def _plain_walk(users, rows_f32, q_tau, q_mask, meta: RetrievalMeta,
         vals = torch.gather(cat_s, 1, order)
         rows = torch.gather(cat_r, 1, order)
     rows = torch.where(vals <= NEG / 2, -1, rows)
-    return GamRetrieveResult(vals, rows, counts, skip)
+    return GamRetrieveResult(vals, rows, counts, skip,
+                             _segment_sums(counts, bounds))
 
 
 def gam_retrieve_plain(users, factors, q_tau, q_mask, meta: RetrievalMeta,
                        kappa: int, *, min_overlap: int = 1, alive=None,
-                       bq: int = 32) -> GamRetrieveResult:
+                       bq: int = 32, segments=None) -> GamRetrieveResult:
     """Plain PyTorch version of :func:`gam_retrieve`, on any device."""
     return _plain_walk(users, lambda lo, hi: factors[lo:hi], q_tau, q_mask,
-                       meta, kappa, min_overlap, alive, bq)
+                       meta, kappa, min_overlap, alive, bq, segments)
 
 
 def gam_retrieve_q_plain(users, q_tau, q_mask, meta: RetrievalMeta,
                          pool: int, *, min_overlap: int = 1, alive=None,
-                         bq: int = 32) -> GamRetrieveResult:
+                         bq: int = 32, segments=None) -> GamRetrieveResult:
     """Plain PyTorch version of :func:`gam_retrieve_q`, on any device: the
     f32 walk over the slab decoded as ``float(q) * scale`` of its block (the
     reference's in-kernel decode), keeping the top ``pool``."""
@@ -317,7 +391,7 @@ def gam_retrieve_q_plain(users, q_tau, q_mask, meta: RetrievalMeta,
         return rows[:hi - lo]
 
     return _plain_walk(users, decode, q_tau, q_mask, meta, pool, min_overlap,
-                       alive, bq)
+                       alive, bq, segments)
 
 
 def rerank_pool(pool_res: GamRetrieveResult, users, factors,
@@ -329,7 +403,7 @@ def rerank_pool(pool_res: GamRetrieveResult, users, factors,
     the kernels' arithmetic (:func:`fma_dot`, so served scores equal the
     dense oracle's), then the top ``kappa`` are taken under (score desc, row
     asc), empty slots keyed :data:`TOPK_EMPTY_ROW` and returned as
-    ``(NEG, -1)``.  Counts and skips carry over from the pool."""
+    ``(NEG, -1)``.  Counts, their sums and skips carry over from the pool."""
     rows_p, vals_p = pool_res.rows, pool_res.vals
     valid = (rows_p >= 0) & (vals_p > NEG / 2)
     idx = torch.where(valid, rows_p, 0).long()
@@ -341,7 +415,7 @@ def rerank_pool(pool_res: GamRetrieveResult, users, factors,
     vals, key = torch.gather(ex, 1, order), torch.gather(key, 1, order)
     rows = torch.where(key == int(TOPK_EMPTY_ROW), -1, key).to(torch.int32)
     return GamRetrieveResult(vals, rows, pool_res.blk_counts,
-                             pool_res.skipped)
+                             pool_res.skipped, pool_res.seg_counts)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -408,9 +482,9 @@ def _entry(name: str):
     """The library's entry ``name`` with its argument types set."""
     fn = getattr(_build.library("gam_retrieve"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 17
+        fn.argtypes = ([ctypes.c_void_p] * 19
                        + [ctypes.c_int] * 3 + [ctypes.c_int64] * 2
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -431,7 +505,7 @@ def _alive_arg(alive, meta: RetrievalMeta, device):
 
 def _launch(entry: str, users, rows: list, q_tau, q_mask,
             meta: RetrievalMeta, kappa: int, min_overlap: int, alive,
-            bq: int) -> GamRetrieveResult:
+            bq: int, segments) -> GamRetrieveResult:
     """Allocate the outputs and launch ``entry`` of the library; ``rows``
     are the factor tensors the entry reads (f32 rows, or slab + scales).
     The query bitsets are packed on the card by the library."""
@@ -441,50 +515,55 @@ def _launch(entry: str, users, rows: list, q_tau, q_mask,
     bq = effective_bq(q, bq)
     qblocks = -(-q // bq)
     alive = _alive_arg(alive, meta, dev)
+    seg = _bounds_tensor(_segment_bounds(segments, nb), dev)
+    nseg = seg.shape[0] - 1
     quantized = entry == "gam_retrieve_i8"
     plan = retrieve_plan(q, k, meta.words, kappa, nb, quantized, dev)
     splits = plan["splits"]
     # one allocation for the scratch and the outputs (int32 words)
     sizes = (q * meta.words, q * nb, splits * q * kappa, splits * q * kappa,
-             q * kappa, q * kappa, -(-qblocks * nb // 4))
+             q * kappa, q * kappa, q * nseg, -(-qblocks * nb // 4))
     ws = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-    q_bits, counts, part_s, part_r, vals, out_rows, skip = torch.split(
-        ws, sizes)
+    q_bits, counts, part_s, part_r, vals, out_rows, seg_counts, skip = \
+        torch.split(ws, sizes)
     counts = counts.view(q, nb)
     vals = vals.view(torch.float32).view(q, kappa)
     out_rows = out_rows.view(q, kappa)
+    seg_counts = seg_counts.view(q, nseg)
     skip = skip.view(torch.uint8)[:qblocks * nb].view(torch.bool).view(
         qblocks, nb)
     factors, scales = (rows[0], rows[1]) if quantized else (rows[0], None)
     ptrs = [None if t is None else t.data_ptr() for t in (
         users, factors, scales, q_tau, q_mask, meta.item_bits_t,
         meta.block_union, meta.block_spill, meta.spill8, alive, q_bits, skip,
-        counts, part_s, part_r, vals, out_rows)]
+        counts, part_s, part_r, vals, out_rows, seg, seg_counts)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(_entry(entry)(
             *ptrs, q, k, meta.words, meta.n_pad, meta.n_rows, meta.bn, nb,
             bq, qblocks, kappa, int(min_overlap),
             int(plan["route"] == "fast"), plan["q_tile"] // 16, splits,
-            plan["blocks_per_split"], stream), entry)
-    return GamRetrieveResult(vals, out_rows, counts, skip)
+            plan["blocks_per_split"], nseg, stream), entry)
+    return GamRetrieveResult(vals, out_rows, counts, skip, seg_counts)
 
 
 def gam_retrieve(users, factors, q_tau, q_mask, meta: RetrievalMeta,
                  kappa: int, *, min_overlap: int = 1, alive=None,
-                 bq: int = 32) -> GamRetrieveResult:
+                 bq: int = 32, segments=None) -> GamRetrieveResult:
     """Launch the CUDA kernel: fused candidate-pruned top-kappa over
     ``meta.n_rows`` items.
 
     ``users``: (Q, k) f32; ``factors``: (n_rows, k) f32; ``q_tau``/``q_mask``:
     (Q, k) int32 / bool mapped query patterns; ``alive``: optional (n_rows,)
-    bool; ``min_overlap=0`` makes every alive row a candidate (exact path)."""
+    bool; ``min_overlap=0`` makes every alive row a candidate (exact path);
+    ``segments``: the first block of each segment whose candidates
+    ``seg_counts`` sums (``None``: one segment, every block)."""
     kappa = int(kappa)
     _check_common(users, q_tau, q_mask, meta, kappa, "gam_retrieve")
     _check("factors", factors, torch.float32, (meta.n_rows, users.shape[1]),
            users.device)
     res = _launch("gam_retrieve_f32", users, [factors], q_tau, q_mask, meta,
-                  kappa, min_overlap, alive, bq)
+                  kappa, min_overlap, alive, bq, segments)
     gam_retrieve.launches += 1
     return res
 
@@ -493,8 +572,8 @@ gam_retrieve.launches = 0
 
 
 def gam_retrieve_q(users, q_tau, q_mask, meta: RetrievalMeta, pool: int, *,
-                   min_overlap: int = 1, alive=None,
-                   bq: int = 32) -> GamRetrieveResult:
+                   min_overlap: int = 1, alive=None, bq: int = 32,
+                   segments=None) -> GamRetrieveResult:
     """Launch the CUDA kernel's int8 entry: as :func:`gam_retrieve`, scoring
     on ``meta.factors_q`` (n_pad, k) int8 decoded with ``meta.scales``
     (1, n_blocks) f32, keeping the top ``pool`` for :func:`rerank_pool`
@@ -509,7 +588,7 @@ def gam_retrieve_q(users, q_tau, q_mask, meta: RetrievalMeta, pool: int, *,
            (meta.n_pad, users.shape[1]), dev)
     _check("scales", meta.scales, torch.float32, (1, meta.n_blocks), dev)
     res = _launch("gam_retrieve_i8", users, [meta.factors_q, meta.scales],
-                  q_tau, q_mask, meta, pool, min_overlap, alive, bq)
+                  q_tau, q_mask, meta, pool, min_overlap, alive, bq, segments)
     gam_retrieve_q.launches += 1
     return res
 

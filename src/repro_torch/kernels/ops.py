@@ -42,7 +42,9 @@ def gam_retrieve(users, factors, q_tau, q_mask, meta, kappa, *,
 
     With ``meta.quantize == "int8"`` the int8 kernel keeps a pool of
     ``kappa * rerank_factor`` rows (at least kappa, at most n_pad), which is
-    re-ranked against the exact f32 ``factors`` rows."""
+    re-ranked against the exact f32 ``factors`` rows.  ``segments=`` (in
+    ``kw``) gives the first block of each segment whose candidates the
+    result's ``seg_counts`` sums; ``None``, one segment over every block."""
     if meta.quantize != "int8":
         return _cost.run("gam_retrieve", _gam_retrieve, users, factors,
                          q_tau, q_mask, meta, kappa, **kw)

@@ -34,7 +34,7 @@ from repro_torch.core.mapping import sparse_map
 from repro_torch.core.retrieval import candidate_topk
 from repro_torch.kernels.gam_retrieve import (RetrievalMeta,
                                               build_retrieval_meta,
-                                              expand_tile_skips)
+                                              expand_tile_skips, fetch_answer)
 from repro_torch.kernels.gam_score import NEG
 from repro_torch.kernels.ops import gam_retrieve
 from repro_torch.retriever.api import Retriever, RetrieverSpec, spec_tracer
@@ -175,8 +175,10 @@ class GamIndexRetriever(Retriever):
         """Top-``kappa`` of each user under (score desc, row asc).  The
         request runs as the tracer's ``query`` with the stages ``map``
         (users to the device and phi), ``retrieve`` (the launch), ``fetch``
-        (the answer copied to the host, where the host waits for the card)
-        and ``assemble`` (the result built on the host)."""
+        (the answer copied to the host, where the host waits for the card;
+        ``gam-device`` copies the (Q, n_blocks) candidate counts only under
+        ``explain``, and its span's ``bytes`` says what was copied) and
+        ``assemble`` (the result built on the host)."""
         kappa = self.spec.kappa if kappa is None else int(kappa)
         users = np.asarray(users, np.float32)
         q = users.shape[0]
@@ -210,29 +212,26 @@ class GamIndexRetriever(Retriever):
                                self.spec.min_overlap,
                                bq=self.spec.bq,
                                rerank_factor=self.spec.rerank_factor)
-        with tracer.span("fetch"):
-            vals = res.vals.cpu().numpy()
-            rows = res.rows.cpu().numpy()
-            blk_counts = res.blk_counts.cpu().numpy()
-            skipped = res.skipped.cpu().numpy() if explain else None
+        with tracer.span("fetch") as sp:
+            ans = fetch_answer(res, full_counts=explain)
+            sp.set(bytes=ans.nbytes)
         with tracer.span("assemble"):
-            rows = rows.astype(np.int64)
-            blk_counts = blk_counts.astype(np.int64)
+            vals, rows = ans.vals, ans.rows.astype(np.int64)
             empty = vals <= NEG / 2          # slots no candidate could fill
             ids_out = np.full((q, kappa), -1, np.int64)
             sc_out = np.full((q, kappa), -np.inf, np.float32)
             ids_out[:, :kk] = np.where(empty, -1,
                                        self.ids[np.clip(rows, 0, n - 1)])
             sc_out[:, :kk] = np.where(empty, -np.inf, vals)
-            n_scored = blk_counts.sum(axis=1)
+            n_scored = ans.seg_counts[:, 0]
             exp = None
             if explain:
-                skips = expand_tile_skips(skipped, q, self.spec.bq)
+                skips = expand_tile_skips(ans.skipped, q, self.spec.bq)
                 exp = {"backend": "gam-device",
                        "n_candidates": n_scored.tolist(),
-                       "block_candidates": blk_counts.tolist(),
+                       "block_candidates": ans.blk_counts.tolist(),
                        "blocks_skipped": skips.sum(axis=1).tolist(),
-                       "n_blocks": int(blk_counts.shape[1])}
+                       "n_blocks": int(ans.blk_counts.shape[1])}
             return RetrievalResult(ids=ids_out, scores=sc_out,
                                    n_scored=n_scored,
                                    discarded_frac=1.0 - n_scored / n,

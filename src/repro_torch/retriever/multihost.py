@@ -302,14 +302,16 @@ class MultiHostIndex:
     def slices_topk(self, slice_ids, users_j, q_tau, q_mask, kappa: int,
                     exact: bool, tracer=None,
                     collect_tile_skips: bool = False,
-                    min_overlap: int | None = None
+                    min_overlap: int | None = None,
+                    stats_rows: int | None = None
                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
         """One host's contribution: fused-kernel top-kappa over each listed
         local slice, exported to global rows and merged into a single
         (Q, kappa) accumulator (score desc, row asc).  Also returns the
         (Q, S) per-shard candidate counts (zeros outside the listed slices)
-        and per-slice block stats for the metrics (plus per-slice prepass
-        tile skips under ``collect_tile_skips``)."""
+        and per-slice block stats for the metrics: each slice's (n_blocks,)
+        candidate totals over the first ``stats_rows`` queries (plus
+        per-slice prepass tile skips under ``collect_tile_skips``)."""
         tracer = NOOP_TRACER if tracer is None else tracer
         q = int(users_j.shape[0])
         cand = np.zeros((q, self.partition.n_shards), np.int64)
@@ -323,14 +325,14 @@ class MultiHostIndex:
                 res = self.get_slice(sl).query(
                     users_j, q_tau, q_mask, kappa, exact=exact,
                     tracer=tracer, collect_tile_skips=collect_tile_skips,
-                    min_overlap=min_overlap)
+                    min_overlap=min_overlap, stats_rows=stats_rows)
             s, r = export_topk(res.scores, res.rows,
                                offset=self.slice_row_offset(sl))
             parts_s.append(s)
             parts_r.append(r)
             s_lo, s_hi = self.placement.slices[sl]
             cand[:, s_lo:s_hi] = res.shard_candidates
-            stats["blocks"][sl] = res.block_candidates
+            stats["blocks"][sl] = res.block_totals
             if collect_tile_skips:
                 stats["skips"][sl] = res.tile_skips
             nb = self.slice_blocks(sl)
@@ -558,7 +560,7 @@ class MultiHostShardedRetriever(ShardedRetriever):
                              hedge_host=alt, won=el < slow_elapsed)
 
     def _base_topk(self, users_j, q_tau, q_mask, kappa, exact,
-                   explain=False, min_overlap=None):
+                   explain=False, min_overlap=None, stats_rows=None):
         """Routed per-host kernel passes + collective accumulator merge.
 
         Bit-identical to the parent's single-index path: each slice is
@@ -607,7 +609,7 @@ class MultiHostShardedRetriever(ShardedRetriever):
         else:
             parts_s, parts_r, tiles = [], [], []
             cand = np.zeros((q, base.partition.n_shards), np.int64)
-            blocks = np.zeros((q, base.total_blocks()), np.int64)
+            blocks = np.zeros(base.total_blocks(), np.int64)
             if explain:
                 skips = np.zeros((q, base.total_blocks()), bool)
             for h in sorted(set(routing)):
@@ -619,7 +621,7 @@ class MultiHostShardedRetriever(ShardedRetriever):
                     s, r, cand_h, st = base.slices_topk(
                         mine, users_j, q_tau, q_mask, kappa, exact,
                         tracer=self.tracer, collect_tile_skips=explain,
-                        min_overlap=min_overlap)
+                        min_overlap=min_overlap, stats_rows=stats_rows)
                 elapsed = self.clock() - t0
                 if fates is not None and fates[h][0] == "slow":
                     elapsed += fates[h][1]       # simulated slow replica
@@ -635,9 +637,8 @@ class MultiHostShardedRetriever(ShardedRetriever):
                 cand += cand_h
                 tiles.extend(st["tiles"])
                 for sl, bc in st["blocks"].items():
-                    if bc is not None:
-                        off = base.slice_block_offset(sl)
-                        blocks[:, off:off + bc.shape[1]] = bc
+                    off = base.slice_block_offset(sl)
+                    blocks[off:off + bc.shape[0]] = bc
                 for sl, sk in st["skips"].items():
                     if sk is not None:
                         off = base.slice_block_offset(sl)
@@ -653,7 +654,8 @@ class MultiHostShardedRetriever(ShardedRetriever):
         with self.tracer.span("assemble"):
             ids = base.rows_to_ids(rows, scores)
         frac = tile_num / tile_den if tile_den else 0.0
-        stats = {"shard_candidates": cand, "block_candidates": blocks,
+        stats = {"shard_candidates": cand, "block_totals": blocks,
+                 "block_rows": q if stats_rows is None else min(stats_rows, q),
                  "tiles_skipped_frac": float(frac)}
         if explain:
             # distributed mode keeps block-skip detail local (accumulators,

@@ -463,11 +463,16 @@ class ShardedRetriever(Retriever):
     # ------------------------------------------------------------ queries
 
     def query(self, users, kappa=None, *, exact=False, explain=False,
-              deadline_s=None) -> RetrievalResult:
+              deadline_s=None, stats_rows=None) -> RetrievalResult:
         """``exact=True`` scores every live item through the same kernel —
         the brute-force reference the benchmark compares against.
         ``explain=True`` attaches shard/delta provenance without changing
         any answer (the kernel already computes everything explain reports).
+
+        ``stats_rows``: the leading rows whose per-block candidate loads
+        :meth:`record_last_query_stats` will fold (the microbatcher's real
+        rows); the loads are summed over them on the card.  ``None``: every
+        row.
 
         ``deadline_s`` is the remaining budget for this call: when it is
         short relative to the EWMA cost estimate of a full query, the
@@ -527,7 +532,7 @@ class ShardedRetriever(Retriever):
 
             b_scores, b_ids, base_stats = self._base_topk(
                 users_j, tau, q_mask, kappa, eff_exact, explain=explain,
-                min_overlap=eff_overlap)
+                min_overlap=eff_overlap, stats_rows=stats_rows)
             if skip_delta:
                 d_scores = np.zeros((q, 0), np.float32)
                 d_ids = np.zeros((q, 0), np.int64)
@@ -660,15 +665,17 @@ class ShardedRetriever(Retriever):
         return row.ids.copy(), row.scores.copy()
 
     def _base_topk(self, users_j, q_tau, q_mask, kappa: int, exact: bool,
-                   explain: bool = False, min_overlap: int | None = None
+                   explain: bool = False, min_overlap: int | None = None,
+                   stats_rows: int | None = None
                    ) -> tuple[np.ndarray, np.ndarray, dict]:
         """Top-kappa of the compacted base tier, in catalog-id space.
 
-        Returns ``(scores, ids, stats)`` with stats carrying the per-shard /
-        per-block candidate counts (plus the per-query prepass tile skips
-        when ``explain`` asks for them).  The ``sharded-multihost`` backend
-        overrides this with the routed per-host computation + collective
-        merge; everything around it (phi-mapping, delta merge, padding,
+        Returns ``(scores, ids, stats)`` with stats carrying the (Q, S)
+        per-shard candidate counts, the (n_blocks,) per-block totals over
+        the first ``stats_rows`` queries and how many those were (plus the
+        per-query prepass tile skips when ``explain`` asks for them).  The
+        ``sharded-multihost`` backend overrides this with the routed
+        per-host computation + collective merge; everything around it (phi-mapping, delta merge, padding,
         metrics) is shared.  The answer's copies to the host run under a
         ``fetch`` span inside ``base``, the row-to-id lookup under
         ``assemble``."""
@@ -676,12 +683,15 @@ class ShardedRetriever(Retriever):
             res = self.base.query(users_j, q_tau, q_mask, kappa, exact=exact,
                                   tracer=self.tracer,
                                   collect_tile_skips=explain,
-                                  min_overlap=min_overlap)
+                                  min_overlap=min_overlap,
+                                  stats_rows=stats_rows)
         with self.tracer.span("assemble"):
             scores = np.asarray(res.scores, np.float32)
             ids = self.base.rows_to_ids(np.asarray(res.rows), scores)
         stats = {"shard_candidates": np.asarray(res.shard_candidates),
-                 "block_candidates": res.block_candidates,
+                 "block_totals": res.block_totals,
+                 "block_rows": (scores.shape[0] if stats_rows is None
+                                else min(int(stats_rows), scores.shape[0])),
                  "tiles_skipped_frac": res.tiles_skipped_frac}
         if explain:
             stats["tile_skips"] = res.tile_skips
@@ -714,16 +724,22 @@ class ShardedRetriever(Retriever):
         :meth:`maybe_rebalance` reads.  The microbatcher calls this per
         batch with the count of real (non-padding) rows; direct-query
         callers (e.g. the SPMD multi-host serve loop) call it with no
-        argument."""
+        argument.  The per-block loads were summed on the card over the
+        rows the query was given as ``stats_rows``, which must be these."""
         st = self._last_query_stats
         if not st:
             return
         sl = slice(None) if n_real is None else slice(n_real)
+        discard = st["discard"][sl]
         sc = st.get("shard_candidates")      # absent for cache-hit answers
-        bc = st.get("block_candidates")
+        bt = st.get("block_totals")
+        if bt is not None and st["block_rows"] != discard.shape[0]:
+            raise ValueError(
+                f"the last query summed its block loads over "
+                f"{st['block_rows']} rows, not {discard.shape[0]}: pass "
+                f"stats_rows={discard.shape[0]} to query()")
         self.metrics.record_query_stats(
-            st["discard"][sl], sc[sl] if sc is not None else None,
-            bc[sl] if bc is not None else None)
+            discard, sc[sl] if sc is not None else None, bt)
 
     def _batch_query_fn(self, users: np.ndarray, n_real: int,
                         deadline_s: float | None = None):
@@ -732,7 +748,7 @@ class ShardedRetriever(Retriever):
         only, never the zero-vector padding.  ``deadline_s`` (the batch's
         tightest remaining budget) drives the degrade ladder; the info
         element carries the degraded flag back onto every QueryResult."""
-        res = self.query(users, deadline_s=deadline_s)
+        res = self.query(users, deadline_s=deadline_s, stats_rows=n_real)
         self.record_last_query_stats(n_real)
         return res.ids, res.scores, {"degraded": res.degraded,
                                      "degrade_rung": res.degrade_rung}

@@ -23,7 +23,8 @@ import torch
 from repro_torch.core.inverted_index import DeviceIndex
 from repro_torch.core.mapping import GamConfig, sparse_map
 from repro_torch.device import resolve_device
-from repro_torch.kernels.gam_retrieve import build_retrieval_meta
+from repro_torch.kernels.gam_retrieve import (build_retrieval_meta,
+                                              fetch_answer)
 from repro_torch.kernels.ops import gam_retrieve
 from repro_torch.obs.tracing import NOOP_TRACER
 from repro_torch.retriever.types import dedupe_last_write
@@ -130,7 +131,8 @@ class DeltaSegment:
         len(self)).  ``users``/``q_tau``/``q_mask`` lie on the segment's
         device.  ``min_overlap`` overrides the segment's prune threshold
         (the QoS degrade ladder raises it under deadline pressure).  The
-        answer's copies to the host run under ``tracer``'s ``fetch``."""
+        answer's copies to the host (scores, rows and the candidate sums,
+        not the per-block counts) run under ``tracer``'s ``fetch``."""
         if not len(self):
             q = int(users.shape[0])
             return (np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int64),
@@ -144,12 +146,10 @@ class DeltaSegment:
                            min_overlap=0 if exact else mo,
                            alive=self._alive,
                            rerank_factor=self.rerank_factor)
-        with tracer.span("fetch"):
-            blk = res.blk_counts.cpu().numpy()
-            rows = res.rows.cpu().numpy()
-            vals = res.vals.cpu().numpy()
-        n_cand = blk.astype(np.int64).sum(axis=1)
+        with tracer.span("fetch") as sp:
+            ans = fetch_answer(res, full_counts=False)
+            sp.set(bytes=ans.nbytes)
         # empty (NEG-scored) slots carry row -1; clip before the id gather
         # (the caller replaces their ids via the NEG-score filter anyway)
-        local = np.clip(rows.astype(np.int64), 0, len(self) - 1)
-        return vals.astype(np.float32), self.ids[local], n_cand
+        local = np.clip(ans.rows.astype(np.int64), 0, len(self) - 1)
+        return ans.vals, self.ids[local], ans.seg_counts[:, 0]

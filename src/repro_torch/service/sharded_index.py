@@ -64,8 +64,9 @@ from repro_torch.device import resolve_device
 from repro_torch.core.retrieval import masked_topk
 from repro_torch.kernels.gam_retrieve import (TOPK_EMPTY_ROW, RetrievalMeta,
                                               _or_blocks, expand_tile_skips,
-                                              export_topk, fma_dot,
-                                              pack_patterns, quantize_meta)
+                                              export_topk, fetch_answer,
+                                              fma_dot, pack_patterns,
+                                              quantize_meta)
 from repro_torch.kernels.gam_score import NEG
 from repro_torch.kernels.ops import gam_retrieve, gam_retrieve_pool
 from repro_torch.obs.tracing import NOOP_TRACER
@@ -122,9 +123,12 @@ class ShardTopK:
     rows: np.ndarray        # (Q, kappa) int32 global rows, -1 in empty slots
     shard_candidates: np.ndarray  # (Q, S) per-shard candidate counts
     block_candidates: np.ndarray | None = None  # (Q, n_blocks) per-block
+                                                # (explain and mesh only)
     tiles_skipped_frac: float = 0.0  # fraction of (Q_blk, N_blk) tiles pruned
     tile_skips: np.ndarray | None = None  # (Q, n_blocks) bool prepass skips
                                           # (explain-only; None by default)
+    block_totals: np.ndarray | None = None  # (n_blocks,) int64 per-block
+                                            # candidates over stats rows
 
 
 # -------------------------------------------------------- staged build units
@@ -247,6 +251,14 @@ class ShardedGamIndex:
             self._padded_ids[off:off + ln] = self.item_ids[st:st + ln]
         # catalog rank -> shard: the right edges of the shards' rank ranges
         self._rank_ends = np.cumsum(partition.lengths)
+        # each group's launch sums its candidates by shard: the shards'
+        # first blocks within the group
+        self._group_segs = []
+        for s_lo, s_hi in partition.groups:
+            nb = [partition.caps[s] // partition.bns[s]
+                  for s in range(s_lo, s_hi)]
+            self._group_segs.append(tuple(int(b) for b in
+                                          np.cumsum([0] + nb[:-1])))
 
     def _place(self, partition: Partition) -> None:
         """This rank's run of shards and rows: all of them unless a mesh
@@ -535,7 +547,8 @@ class ShardedGamIndex:
     # ------------------------------------------------------------- query
 
     def _shard_candidates(self, blk: np.ndarray) -> np.ndarray:
-        """(Q, n_blocks) per-block candidate counts -> (Q, S) per-shard."""
+        """(Q, n_blocks) per-block candidate counts -> (Q, S) per-shard (on
+        a mesh, where the ranks gather the whole counts)."""
         nb = [self.partition.caps[s] // self.partition.bns[s]
               for s in range(self.n_shards)]
         starts = np.concatenate([[0], np.cumsum(nb)[:-1]]).astype(int)
@@ -544,7 +557,8 @@ class ShardedGamIndex:
     def query(self, users: torch.Tensor, q_tau: torch.Tensor,
               q_mask: torch.Tensor, kappa: int, *, exact: bool = False,
               tracer=None, collect_tile_skips: bool = False,
-              min_overlap: int | None = None) -> ShardTopK:
+              min_overlap: int | None = None,
+              stats_rows: int | None = None) -> ShardTopK:
         """users (Q, k) f32 + mapped query patterns, on the index's device
         -> merged top-kappa.
 
@@ -557,61 +571,77 @@ class ShardedGamIndex:
         every live row through the same kernel (``min_overlap=0``).
 
         ``tracer`` wraps each per-group launch, the copies of the answers
-        to the host (``fetch``) and the host merge in spans;
-        ``collect_tile_skips`` also expands the kernel's per-query-block
-        skip map to a per-query (Q, n_blocks) bool in
-        ``ShardTopK.tile_skips`` (host numpy over existing outputs)."""
+        to the host (``fetch``, its ``bytes`` what was copied) and the host
+        merge in spans.  The kernel sums each query's candidates by shard
+        on the card, and the per-block loads are summed on the card over
+        the first ``stats_rows`` queries (all by default) into
+        ``ShardTopK.block_totals``: the host copies (Q, S) sums, (n_blocks,)
+        totals and the skip map.  ``collect_tile_skips`` (``explain``) also
+        copies the (Q, n_blocks) counts into ``block_candidates`` and
+        expands the kernel's per-query-block skip map to a per-query (Q,
+        n_blocks) bool in ``ShardTopK.tile_skips``."""
         tracer = NOOP_TRACER if tracer is None else tracer
         # min_overlap override: the QoS degrade ladder raises the prune
         # threshold one notch under deadline pressure (exact still wins)
         mo = 0 if exact else (self.min_overlap if min_overlap is None
                               else int(min_overlap))
         q = int(users.shape[0])
+        n_stats = q if stats_rows is None else min(int(stats_rows), q)
         if self.placed:
             return self._query_placed(users, q_tau, q_mask, kappa, mo,
-                                      tracer, collect_tile_skips)
-        results = []
+                                      tracer, collect_tile_skips, n_stats)
+        results, totals = [], []
         for g, meta in enumerate(self.metas):
             with tracer.span("gam_retrieve", group=g, bn=meta.bn,
                              n_rows=meta.n_rows):
-                results.append(gam_retrieve(
+                res = gam_retrieve(
                     users, self.factors_g[g], q_tau, q_mask, meta, kappa,
                     min_overlap=mo, alive=self.alive_g[g],
-                    rerank_factor=self.rerank_factor))
-        with tracer.span("fetch"):
-            host = [(r.vals.cpu().numpy(), r.rows.cpu().numpy(),
-                     r.blk_counts.cpu().numpy(), r.skipped.cpu().numpy())
+                    rerank_factor=self.rerank_factor,
+                    segments=self._group_segs[g])
+                totals.append(res.blk_counts[:n_stats].sum(
+                    0, dtype=torch.int64))
+            results.append(res)
+        with tracer.span("fetch") as sp:
+            host = [fetch_answer(r, full_counts=collect_tile_skips)
                     for r in results]
-        host = [(v, r, b.astype(np.int64), sk) for v, r, b, sk in host]
-        skips = (np.concatenate([expand_tile_skips(sk, q)
-                                 for _, _, _, sk in host], axis=1)
-                 if collect_tile_skips and host else None)
+            totals = [t.cpu().numpy() for t in totals]
+            copied = sum(a.nbytes for a in host) + sum(t.nbytes for t in totals)
+            if collect_tile_skips:
+                sks = [a.skipped for a in host]
+            else:                     # for tiles_skipped_frac
+                sks = [r.skipped.cpu().numpy() for r in results]
+                copied += sum(sk.nbytes for sk in sks)
+            sp.set(bytes=copied)
+        cand = np.concatenate([a.seg_counts for a in host], axis=1)
+        blk_tot = np.concatenate(totals)
+        blk, skips = None, None
+        if collect_tile_skips:
+            blk = np.concatenate([a.blk_counts for a in host],
+                                 axis=1).astype(np.int64)
+            skips = np.concatenate([expand_tile_skips(sk, q) for sk in sks],
+                                   axis=1)
         if len(host) == 1:
-            vals, rows, blk, sk = host[0]
-            return ShardTopK(scores=vals.astype(np.float32),
-                             rows=rows.astype(np.int32),
-                             shard_candidates=self._shard_candidates(blk),
-                             block_candidates=blk,
-                             tiles_skipped_frac=float(sk.mean()),
-                             tile_skips=skips)
+            return ShardTopK(scores=host[0].vals, rows=host[0].rows,
+                             shard_candidates=cand, block_candidates=blk,
+                             tiles_skipped_frac=float(sks[0].mean()),
+                             tile_skips=skips, block_totals=blk_tot)
         with tracer.span("group_merge", n_groups=len(host)):
-            exported = [export_topk(v, r,
+            exported = [export_topk(a.vals, a.rows,
                                     offset=self.partition.group_rows(g)[0])
-                        for g, (v, r, _, _) in enumerate(host)]
+                        for g, a in enumerate(host)]
             cat_s = np.concatenate([s for s, _ in exported], axis=1)
             cat_r = np.concatenate([r for _, r in exported], axis=1)
             order = np.lexsort((cat_r, -cat_s), axis=-1)[:, :kappa]
             vals = np.take_along_axis(cat_s, order, axis=-1)
             rows = np.take_along_axis(cat_r, order, axis=-1)
             rows = np.where(vals <= NEG / 2, -1, rows).astype(np.int32)
-        blk = np.concatenate([b for _, _, b, _ in host], axis=1)
-        tiles = sum(sk.size for _, _, _, sk in host)
-        skipped = sum(int(sk.sum()) for _, _, _, sk in host)
-        return ShardTopK(scores=vals, rows=rows,
-                         shard_candidates=self._shard_candidates(blk),
+        tiles = sum(sk.size for sk in sks)
+        skipped = sum(int(sk.sum()) for sk in sks)
+        return ShardTopK(scores=vals, rows=rows, shard_candidates=cand,
                          block_candidates=blk,
                          tiles_skipped_frac=skipped / max(tiles, 1),
-                         tile_skips=skips)
+                         tile_skips=skips, block_totals=blk_tot)
 
     def _merge_ranks(self, scores, rows, kappa: int, counts, stats):
         """Every rank's exported accumulators (``export_topk``), (Q, X)
@@ -625,7 +655,8 @@ class ShardedGamIndex:
         return vals, rows, counts, stats
 
     def _query_placed(self, users, q_tau, q_mask, kappa: int, mo: int,
-                      tracer, collect_tile_skips: bool) -> ShardTopK:
+                      tracer, collect_tile_skips: bool,
+                      n_stats: int) -> ShardTopK:
         """:meth:`query` on a mesh: ``gam_retrieve`` over this rank's rows,
         then the ranks' accumulators merged.  int8: the ranks' pools are
         merged into the whole index's pool (the same rows one device keeps,
@@ -674,7 +705,8 @@ class ShardedGamIndex:
                          tiles_skipped_frac=float(stats[0] / max(stats[1],
                                                                  1)),
                          tile_skips=(counts[:, nb:] != 0
-                                     if collect_tile_skips else None))
+                                     if collect_tile_skips else None),
+                         block_totals=blk[:n_stats].sum(axis=0))
 
     def _rerank_placed(self, users, factors, pool_vals, pool_rows,
                        kappa: int):

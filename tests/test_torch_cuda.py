@@ -369,6 +369,40 @@ def test_gam_retrieve_q_kernel_equals_plain_wide_pool(
     assert _max_ulp(got.vals, want.vals) <= 4
 
 
+@pytest.mark.parametrize("segments", [None, (0, 1, 3, 8, 13, 21, 30, 39)],
+                         ids=["one", "eight"])
+@pytest.mark.parametrize("width,route", [(10, "fast"), (200, "wide")])
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_segment_sums_equal_block_counts_by_segment(dev, quantize, width,
+                                                    route, segments):
+    """merge_kernel's ``seg_counts`` on both routes, f32 and int8: the
+    call's ``blk_counts`` summed by segment and the plain version's sums,
+    bit for bit, at Q 37 (not a multiple of the merge kernel's 4 warps)."""
+    items, users, q_tau, q_vals, meta = _catalog(dev, 5000, 37, 64, 128,
+                                                 quantize)
+    assert meta.n_blocks == 40
+    assert gr.retrieve_plan(37, 16, meta.words, width, meta.n_blocks,
+                            quantize == "int8", dev)["route"] == route
+    if quantize == "int8":
+        args = (users, q_tau, q_vals != 0, meta, width)
+        got = gr.gam_retrieve_q(*args, min_overlap=1, segments=segments)
+        want = gr.gam_retrieve_q_plain(*args, min_overlap=1,
+                                       segments=segments)
+    else:
+        args = (users, items, q_tau, q_vals != 0, meta, width)
+        got = gr.gam_retrieve(*args, min_overlap=1, segments=segments)
+        want = gr.gam_retrieve_plain(*args, min_overlap=1, segments=segments)
+    torch.cuda.synchronize()
+    starts = [0] if segments is None else list(segments)
+    blk = got.blk_counts.long()
+    by_seg = torch.stack([blk[:, a:b].sum(1) for a, b in
+                          zip(starts, starts[1:] + [meta.n_blocks])], 1)
+    assert got.seg_counts.shape == (37, len(starts))
+    assert torch.equal(got.seg_counts.long(), by_seg)
+    assert torch.equal(got.seg_counts, want.seg_counts)
+    assert int(by_seg.sum()) > 0
+
+
 # the fast route's edges (csrc/gam_retrieve.cu, tile_kernel): queries that
 # do not fill a 16-query tile, words across the 256-bit chunk of the 1-bit
 # mma, min_overlap 0 with pad rows and items, n_rows cutting into a block,

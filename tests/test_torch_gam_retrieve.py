@@ -470,8 +470,11 @@ def test_rerank_pool_matches_reference(n, q, kappa, pool, mo):
         min_overlap=mo, bq=8, bn=jm.bn, words=jm.words, n_pad=jm.n_pad,
         interpret=True, loop_merge=False)
     want = jgr._rerank_pool(pool_res, users, items, kappa)
-    got = tgr.rerank_pool(tgr.GamRetrieveResult(*(_t(a) for a in pool_res)),
-                          _t(users), _t(items), kappa)
+    # a result built from four fields, as the reference's: no sums
+    four = tgr.GamRetrieveResult(*(_t(a) for a in pool_res))
+    assert four.seg_counts is None
+    got = tgr.rerank_pool(four, _t(users), _t(items), kappa)
+    assert got.seg_counts is None
     _assert_retrieve_equal(got, want, users, items)
     # the re-ranked scores are the kernels' exact f32 scores of their rows
     real = got.rows.numpy() >= 0
@@ -490,3 +493,77 @@ def test_int8_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tgr.gam_retrieve_q(_t(items[:2]), _t(tau[:2]), _t(mask[:2]), tm, 10)
     assert tgr.gam_retrieve_q.launches == 0
+
+
+# the first blocks of the segments that seg_counts sums (17 blocks of 32
+# rows): one over every block, eight uneven ones, one that is empty
+SEGMENTS = {"one": None, "eight_uneven": (0, 1, 3, 4, 8, 9, 13, 15),
+            "with_empty": (0, 2, 2, 7)}
+
+
+@pytest.mark.parametrize("segments", list(SEGMENTS))
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_plain_segment_sums_are_block_counts_by_segment(segments, quantize):
+    """``seg_counts`` is ``blk_counts`` summed over each segment's blocks,
+    exactly, in int32; the int8 path carries the pool's sums through
+    ``rerank_pool``."""
+    items = unit_factors(530, 16, 81)
+    users = unit_factors(11, 16, 82)
+    tau, mask = _mapped(items)
+    q_tau, q_mask = _mapped(users)
+    tm = tgr.build_retrieval_meta(tau, mask, CFG.p, bn=32, factors=items,
+                                  quantize=quantize, device="cpu")
+    assert tm.n_blocks == 17
+    seg = SEGMENTS[segments]
+    if quantize == "int8":
+        pool = tgr.gam_retrieve_q_plain(_t(users), _t(q_tau), _t(q_mask), tm,
+                                        40, min_overlap=2, segments=seg)
+        got = tgr.rerank_pool(pool, _t(users), _t(items), 10)
+        assert got.seg_counts is pool.seg_counts
+    else:
+        got = tgr.gam_retrieve_plain(_t(users), _t(items), _t(q_tau),
+                                     _t(q_mask), tm, 10, min_overlap=2,
+                                     segments=seg)
+    blk = got.blk_counts.numpy().astype(np.int64)
+    starts = [0] if seg is None else list(seg)
+    want = np.stack([blk[:, a:b].sum(axis=1) for a, b in
+                     zip(starts, starts[1:] + [tm.n_blocks])], axis=1)
+    assert got.seg_counts.dtype == torch.int32
+    np.testing.assert_array_equal(got.seg_counts.numpy(), want)
+    assert want.sum() > 0
+
+
+@pytest.mark.parametrize("segments", [(), (1, 4), (0, 5, 3), (0, 18)])
+def test_segments_must_start_at_block_zero_and_rise(segments):
+    items = unit_factors(530, 16, 81)
+    tau, mask = _mapped(items)
+    tm = tgr.build_retrieval_meta(tau, mask, CFG.p, bn=32, device="cpu")
+    with pytest.raises(ValueError, match="segments"):
+        tgr.gam_retrieve_plain(_t(items[:3]), _t(items), _t(tau[:3]),
+                               _t(mask[:3]), tm, 5, segments=segments)
+
+
+def test_fetch_answer_copies_the_full_counts_only_when_asked():
+    items = unit_factors(530, 16, 81)
+    users = unit_factors(6, 16, 83)
+    tau, mask = _mapped(items)
+    q_tau, q_mask = _mapped(users)
+    tm = tgr.build_retrieval_meta(tau, mask, CFG.p, bn=32, device="cpu")
+    res = tgr.gam_retrieve_plain(_t(users), _t(items), _t(q_tau), _t(q_mask),
+                                 tm, 10, min_overlap=2, segments=(0, 9))
+    fa = tgr.fetch_answer
+    summed, full = fa.summed, fa.full
+    ans = fa(res, full_counts=False)
+    assert (fa.summed, fa.full) == (summed + 1, full)
+    assert ans.blk_counts is None and ans.skipped is None
+    assert ans.seg_counts.dtype == np.int64
+    np.testing.assert_array_equal(ans.seg_counts, res.seg_counts.numpy())
+    np.testing.assert_array_equal(ans.vals, res.vals.numpy())
+    np.testing.assert_array_equal(ans.rows, res.rows.numpy())
+    assert ans.nbytes == 6 * 10 * 8 + 6 * 2 * 4
+    whole = fa(res, full_counts=True)
+    assert (fa.summed, fa.full) == (summed + 1, full + 1)
+    np.testing.assert_array_equal(whole.blk_counts, res.blk_counts.numpy())
+    np.testing.assert_array_equal(whole.skipped, res.skipped.numpy())
+    assert whole.nbytes == (ans.nbytes + res.blk_counts.numel() * 4
+                            + res.skipped.numel())

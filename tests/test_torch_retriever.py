@@ -7,6 +7,7 @@ ids, ``n_scored``, ``discarded_frac`` and every ``explain`` field match
 exactly; scores within 4 ulp of the dot-product scale (see
 ``test_torch_gam_retrieve``).
 """
+import importlib
 import os
 
 import numpy as np
@@ -23,6 +24,8 @@ import repro_torch.retriever as tr  # noqa: E402
 from repro.configs import gam_mf  # noqa: E402
 from repro_torch.core.mapping import GamConfig  # noqa: E402
 from repro_torch.retriever.multihost import MultiHostIndex  # noqa: E402
+
+gr = importlib.import_module("repro_torch.kernels.gam_retrieve")
 
 N_ITEMS, N_QUERIES = 2048, 64
 
@@ -238,10 +241,37 @@ def test_unsupported_settings_raise_typed_errors():
         tr.open_retriever(tspec, items=items, snapshot="x", device="cpu")
 
 
-# ------------------------------------------------- the compressed catalog
-
 COMPRESSED = dict(quantize="int8", compress_postings=True)
 
+
+@pytest.mark.parametrize("settings", [{}, COMPRESSED], ids=["f32", "int8"])
+def test_gam_device_copies_the_block_counts_only_under_explain(settings):
+    """Without ``explain`` a request copies the kernel's candidate sums,
+    not its (Q, n_blocks) counts; the answer is the same bits either way
+    and the explain dict is the reference's."""
+    items, users = _data("cfg")
+    jspec, tspec = _specs("cfg", **settings)
+    got = tr.open_retriever(tspec, items=items, device="cpu")
+    fa = gr.fetch_answer
+    summed, full = fa.summed, fa.full
+    for exact in (False, True):
+        plain = got.query(users, exact=exact)
+        assert (fa.summed, fa.full) == (summed + 1, full)
+        whole = got.query(users, exact=exact, explain=True)
+        assert (fa.summed, fa.full) == (summed + 1, full + 1)
+        summed, full = fa.summed, fa.full
+        for f in ("ids", "scores", "n_scored", "discarded_frac"):
+            np.testing.assert_array_equal(getattr(plain, f),
+                                          getattr(whole, f))
+        assert plain.explain is None and plain.n_scored.dtype == np.int64
+        want = jr.open_retriever(jspec, items=items).query(
+            users, exact=exact, explain=True)
+        _assert_same_answer(plain, want, users, items)
+        assert whole.explain == want.explain
+        assert whole.explain["n_candidates"] == plain.n_scored.tolist()
+
+
+# ------------------------------------------------- the compressed catalog
 
 @pytest.mark.parametrize("schema", ["gam_mf", "cfg"])
 @pytest.mark.parametrize("rerank_factor", [1, 2, 4])

@@ -422,6 +422,84 @@ def test_heterogeneous_partition_equals_uniform_bit_for_bit(lengths, bns):
     _same_base(jhet, het)
 
 
+def _loaded_pair(layout):
+    """A (reference, port) pair with a live delta: the uniform layout, or
+    a repartition to at least two bn-groups (a hot cluster at the front of
+    the id order draws the candidate traffic)."""
+    rng = np.random.default_rng(77)
+    hot = rng.normal(size=16).astype(np.float32)
+    items = np.concatenate([hot + 0.05 * rng.normal(size=(40, 16)),
+                            rng.normal(size=(120, 16))]).astype(np.float32)
+    items /= np.linalg.norm(items, axis=1, keepdims=True)
+    users = (hot + 0.05 * rng.normal(size=(8, 16))).astype(np.float32)
+    users /= np.linalg.norm(users, axis=1, keepdims=True)
+    j, t = _pair(items, n_shards=3, options=(("rebalance_target_blocks",
+                                              2),))
+    for r in (j, t):
+        if layout == "heterogeneous":
+            for i in range(8):
+                r.batcher.submit(users[i])
+            r.batcher.flush()
+            r.repartition(async_=False)
+        r.upsert([500, 501, 3], unit_factors(3, CFG.k, 79))
+        r.delete([7])
+        r.metrics.reset()
+    assert len(t.delta) == 3
+    assert (len(t.base.partition.groups) >= 2) == (layout == "heterogeneous")
+    return j, t, users
+
+
+@pytest.mark.parametrize("path", ["microbatch", "direct"])
+@pytest.mark.parametrize("layout", ["uniform", "heterogeneous"])
+def test_card_side_candidate_sums_equal_the_reference_counts(layout, path):
+    """The port sums candidates by shard in the kernel and per block on
+    the device; shard candidates, ``n_scored`` and the metrics' block
+    loads equal the reference's, which sums the copied (Q, n_blocks)
+    counts on the host."""
+    j, t, users = _loaded_pair(layout)
+    n_real = 5
+    padded = np.concatenate([users[:n_real], np.zeros((3, CFG.k),
+                                                      np.float32)])
+    for r in (j, t):
+        if path == "microbatch":
+            r._batch_query_fn(padded, n_real)
+        else:
+            r.query(users)
+            r.record_last_query_stats()
+    np.testing.assert_array_equal(t.metrics.block_candidates,
+                                  j.metrics.block_candidates)
+    np.testing.assert_array_equal(t.metrics.shard_candidates,
+                                  j.metrics.shard_candidates)
+    assert t.metrics.block_candidates.sum() > 0
+    _same(t.query(users), j.query(users), users)
+    got = t.query(users, explain=True)
+    _same(got, j.query(users, explain=True), users, explain=True)
+    assert got.explain["n_candidates"] == got.n_scored.tolist()
+    # the index's own sums against the counts it copies under explain
+    u = torch.as_tensor(users)
+    tau, vals = sparse_map(u, TCFG)
+    full = t.base.query(u, tau, vals != 0, 10, collect_tile_skips=True)
+    part = t.base.query(u, tau, vals != 0, 10, stats_rows=n_real)
+    assert part.block_candidates is None and part.tile_skips is None
+    np.testing.assert_array_equal(part.shard_candidates,
+                                  full.shard_candidates)
+    np.testing.assert_array_equal(part.block_totals,
+                                  full.block_candidates[:n_real].sum(0))
+    np.testing.assert_array_equal(full.block_totals,
+                                  full.block_candidates.sum(0))
+    assert part.tiles_skipped_frac == full.tiles_skipped_frac
+
+
+def test_block_loads_fold_only_over_the_rows_they_were_summed_on():
+    _, t, users = _loaded_pair("uniform")
+    t.query(users)
+    with pytest.raises(ValueError, match="stats_rows=5"):
+        t.record_last_query_stats(5)
+    t.query(users, stats_rows=5)
+    t.record_last_query_stats(5)
+    assert t.metrics.block_candidates.sum() > 0
+
+
 # ------------------------------------------------------------ snapshots
 
 
