@@ -2,9 +2,40 @@
 reference, and the result.
 
 Everything a cell needs is found by name: its entry in ``BENCHMARK.json``,
-its configuration's file, ``traffic/<traffic>.json``, ``limits/<cell>.json``
-and, for each metric, the reader ``metrics/<name>.py`` (or, where there is
-none, ``metrics/<name before its first dot>.py``).
+its configuration's file, the kind of system that file names
+(``systems/<system>.py``; ``retrieval`` where it names none),
+``traffic/<traffic>.json``, ``limits/<cell>.json`` and, for each metric,
+the reader ``metrics/<name>.py`` (or, where there is none,
+``metrics/<name before its first dot>.py``).
+
+The window is one closed-loop client (it sends each request once the last
+is answered) for every kind: a mix's ``loop`` and ``clients``, where it
+gives them, may be only ``"closed"`` and 1, and any other value is
+refused, not run as closed.
+
+``set_up`` loads the kind's module once a run and keeps it as
+``Run.system_kind``.  It gives the harness, by these names:
+
+* ``NUMBERS``: the comparison's numbers; ``limits/<cell>.json`` holds a
+  limit for each, and no other.
+* ``draw(config, traffic, seed)``: the data and traffic drawn from the
+  seed, an object with ``request(i)`` (request ``i`` of the window;
+  ``i < 0``: warm-up), ``warmup_requests`` and ``mutations`` (set-up's,
+  maybe none).
+* ``prepare(config, data, device)``: the benchmark's own set-up work (the
+  reference's), kept out of ``setup_s``; its result is handed to
+  ``open_system``, ``judge`` and ``control``.
+* ``open_system(root, config, data, prepared, device=, traced=)``: the
+  system on the program's normal path, with ``query(request)``,
+  ``mutate(op)``, ``launches()``, ``spans()`` and ``close()``.
+* ``recorder(run, seed)``: ``record(i, request, answer)`` (``answer`` is
+  ``None`` where the request failed) -> (the queries the request
+  answered, what the window keeps of it for the comparison); it may keep
+  on ``run`` what the kind's own readers read.
+* ``judge(run, prepared, seed)``: the comparison's numbers, once the
+  window has closed and the program's state is freed.
+* ``control(run, prepared)``: (the control in the program's place, the
+  requests it answers to fill the comparison), for ``control.py``.
 """
 from __future__ import annotations
 
@@ -13,31 +44,29 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import re
 import resource
 import sys
 import time
 import traceback
 from pathlib import Path
+from types import ModuleType
 
 import numpy as np
 import torch
 
-from gpubench.gen import traffic as gen
-from gpubench.reference.compare import NUMBERS, judge
-from gpubench.reference.phi import parse_tree_dim, posting_lengths
-from gpubench.reference.retrieval import Answer, Catalog, answer, live_catalog
-from gpubench.system import System
 from gpubench.trace import WINDOW, Profile
 
-__all__ = ["BANNED", "Run", "banned_modules", "cell", "judge_run", "live",
-           "reader", "run", "set_up"]
+__all__ = ["BANNED", "Run", "banned_modules", "cell", "judge_run", "reader",
+           "run", "set_up", "system_kind"]
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
 #: top-level modules no run may hold once its window has closed
 BANNED = ("jax", "jaxlib", "flax", "repro")
-#: rows of each answer the window keeps for the comparison to draw from
-KEPT = 32
+#: the kind of a configuration that names none
+DEFAULT_KIND = "retrieval"
+_KIND_NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_-]{0,63}$")
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -59,16 +88,34 @@ def metrics_of(bench: dict, name: str, traced: bool) -> list[dict]:
     return [m for m in group if name in m.get("workloads", [name])]
 
 
+def _load(path: Path, name: str) -> ModuleType:
+    """The module at ``path``, loaded by path under ``name``.  It is entered
+    in ``sys.modules``, where ``dataclasses`` looks up a class's module."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
 def reader(name: str, here: Path = HERE):
     """The ``read(run, name)`` function of metric ``name``."""
     path = here / "metrics" / f"{name}.py"
     if not path.exists():
         path = here / "metrics" / f"{name.split('.')[0]}.py"
-    spec = importlib.util.spec_from_file_location(
-        "gpubench_metric_" + path.stem.replace(".", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(path, "gpubench_metric_" + path.stem.replace(".", "_")).read
+
+
+def system_kind(config: dict, here: Path = HERE) -> ModuleType:
+    """The module of the kind of system ``config`` names
+    (``systems/<system>.py``)."""
+    kind = config.get("system", DEFAULT_KIND)
+    path = here / "systems" / f"{kind}.py"
+    if not (isinstance(kind, str) and _KIND_NAME.match(kind)
+            and path.is_file()):
+        raise FileNotFoundError(f"the configuration names system {kind!r}: "
+                                f"no module {path}")
+    return _load(path, "gpubench_system_" + kind.replace("-", "_"))
 
 
 def banned_modules() -> list[str]:
@@ -87,25 +134,25 @@ def _merge(base: dict, over: dict | None) -> dict:
 
 @dataclasses.dataclass
 class Run:
-    """What a metric's reader reads."""
+    """What a metric's reader reads.  The fields are every kind's; a kind's
+    module may keep more on the run for its own readers."""
 
     name: str
     config: dict
     traffic: dict
-    data: gen.Traffic
+    data: object                      # the kind's draw
+    system_kind: ModuleType           # the kind's module (systems/<kind>.py)
     device: torch.device
     setup_s: float = 0.0
     peak_bytes: int = 0
     t0: float = 0.0                   # the window, host clock
     t1: float = 0.0
-    reference_s: float = 0.0          # the reference's work inside set-up
+    reference_s: float = 0.0          # the benchmark's work inside set-up
     latencies_s: list = dataclasses.field(default_factory=list)
-    queries: list = dataclasses.field(default_factory=list)
-    n_scored: list = dataclasses.field(default_factory=list)  # a request's
-    kept: list = dataclasses.field(default_factory=list)  # (i, rows, answer)
+    queries: list = dataclasses.field(default_factory=list)   # a request's
+    kept: list = dataclasses.field(default_factory=list)  # the kind's record
     failed: int = 0
-    launches: int = 0                 # the fused kernel's, in the window
-    n_live: int = 0                   # catalog rows served in the window
+    launches: int = 0                 # the program's counter, in the window
     spans: list = dataclasses.field(default_factory=list)
     profile: Profile | None = None
     notes: dict = dataclasses.field(default_factory=dict)   # readers' words
@@ -124,13 +171,6 @@ class Run:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _kept_rows(keep_seed: int, i: int, b: int, m: int) -> np.ndarray:
-    """The rows of request ``i`` whose answers the window keeps for the
-    comparison: ``m`` of its ``b``, drawn from the run's seed."""
-    rng = np.random.default_rng([keep_seed, i])
-    return np.sort(rng.choice(b, min(m, b), replace=False))
 
 
 def _host_counters() -> dict:
@@ -157,10 +197,10 @@ def _window(run: Run, system, seconds: float, profiled: bool, seed: int,
             min_requests: int = 1) -> None:
     """Requests back to back from one client for ``seconds``, and at least
     ``min_requests`` of them, under ``torch.profiler`` where ``profiled``.
-    Of each answer the window keeps the rows drawn for the comparison, so
-    a run holds no more than those."""
+    Of each answer the window keeps what the kind's record draws for the
+    comparison, so a run holds no more than that."""
     data, dev = run.data, run.device
-    keep_seed = gen.seeds(seed, 5)[4]
+    record = run.system_kind.recorder(run, seed)
     prof = None
     if profiled:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -176,10 +216,10 @@ def _window(run: Run, system, seconds: float, profiled: bool, seed: int,
             run.t0 = te = time.perf_counter()
             i = 0
             while te - run.t0 < seconds or i < min_requests:
-                users = data.request(i)
+                request = data.request(i)
                 ts = time.perf_counter()
                 try:
-                    res = system.query(users)
+                    res = system.query(request)
                 except Exception:        # counted as failed; the loop goes on
                     if not run.failed:
                         traceback.print_exc()
@@ -187,13 +227,9 @@ def _window(run: Run, system, seconds: float, profiled: bool, seed: int,
                     res = None
                 te = time.perf_counter()
                 run.latencies_s.append(te - ts)
-                run.queries.append(len(users))
-                rows = _kept_rows(keep_seed, i, len(users), KEPT)
-                run.n_scored.append(None if res is None
-                                    else int(np.sum(res.n_scored)))
-                run.kept.append((i, rows, None if res is None else (
-                    np.asarray(res.ids)[rows], np.asarray(res.scores)[rows],
-                    np.asarray(res.n_scored)[rows])))
+                n, kept = record(i, request, res)
+                run.queries.append(n)
+                run.kept.append(kept)
                 del res
                 i += 1
             _sync(dev)
@@ -216,44 +252,21 @@ def _window(run: Run, system, seconds: float, profiled: bool, seed: int,
         run.profile = Profile(prof.profiler.kineto_results.events())
 
 
-def _sample(run: Run, seed: int) -> tuple[np.ndarray, Answer]:
-    """The kept answers, ``traffic["sample"]`` of them drawn from the seed
-    -> (users, the served answer)."""
-    kappa = int(run.config["spec"]["kappa"])
-    users, ids, scores, n = [], [], [], []
-    for i, rows, got in run.kept:
-        users.append(run.data.request(i)[rows])
-        if got is None:               # a failed request serves nothing
-            ids.append(np.full((rows.size, kappa), -1, np.int64))
-            scores.append(np.full((rows.size, kappa), -np.inf, np.float32))
-            n.append(np.full(rows.size, -1, np.int64))
-        else:
-            ids.append(got[0])
-            scores.append(got[1])
-            n.append(got[2])
-    users, ids = np.concatenate(users), np.concatenate(ids)
-    rng = np.random.default_rng(gen.seeds(seed, 6)[5])
-    pick = np.sort(rng.choice(len(users), min(run.data.sample, len(users)),
-                              replace=False))
-    return users[pick], Answer(ids[pick], np.concatenate(scores)[pick],
-                               np.concatenate(n)[pick])
-
-
-def live(data: gen.Traffic, threshold: float, base: Catalog | None = None,
-         precision: str = "f32", device="cpu") -> Catalog:
-    """The live catalog after set-up's mutations, with its phi maps."""
-    if not data.mutations and base is not None:
-        return base
-    ids, fac = (live_catalog(data.ids, data.items, data.mutations)
-                if data.mutations else (data.ids, data.items))
-    return Catalog.of(ids, fac, threshold, precision, device)
+def _limits(name: str, kind: ModuleType) -> dict:
+    """``limits/<cell>.json``: a limit for each of the kind's numbers."""
+    path = HERE / "limits" / f"{name}.json"
+    limits = json.loads(path.read_text())
+    if set(limits) != set(kind.NUMBERS):
+        raise ValueError(f"{path} holds {sorted(limits)}; the kind's numbers "
+                         f"are {sorted(kind.NUMBERS)}")
+    return limits
 
 
 def set_up(name: str, seed: int, *, root: Path = ROOT, device: str = "cuda",
            overrides: dict | None = None, traced: bool = False
-           ) -> tuple[Run, System, Catalog, dict]:
+           ) -> tuple[Run, object, object, dict]:
     """Data, the system built and mutated, every request shape warmed up
-    -> (run, system, the reference's base catalog, limits)."""
+    -> (run, system, the kind's prepared reference, limits)."""
     bench = load_benchmark(root)
     work, conf = cell(bench, name)
     over = overrides or {}
@@ -262,7 +275,12 @@ def set_up(name: str, seed: int, *, root: Path = ROOT, device: str = "cuda",
     traffic = _merge(json.loads((HERE / "traffic" /
                                  f"{work['traffic']}.json").read_text()),
                      over.get("traffic"))
-    limits = json.loads((HERE / "limits" / f"{name}.json").read_text())
+    shape = (traffic.get("loop", "closed"), int(traffic.get("clients", 1)))
+    if shape != ("closed", 1):
+        raise ValueError(f"the window runs one closed-loop client, not "
+                         f"loop {shape[0]!r} with {shape[1]} clients")
+    kind = system_kind(config)
+    limits = _limits(name, kind)
     dev = torch.device(device)
     stages, t = {}, time.perf_counter()
 
@@ -273,18 +291,14 @@ def set_up(name: str, seed: int, *, root: Path = ROOT, device: str = "cuda",
         stages[what] = now - t
         t = now
 
-    data = gen.make(config["data"], traffic, seed)
+    data = kind.draw(config, traffic, seed)
     stage("data")
-    thr = float(config["gam"]["threshold"])
-    base = Catalog.of(data.ids, data.items, thr, device=dev)
-    # the bucket holds the longest posting list: no list spills
-    bucket = int(posting_lengths(base.tau, base.mask,
-                                 parse_tree_dim(base.tau.shape[1])).max())
-    stage("bucket")
+    prepared = kind.prepare(config, data, dev)
+    stage("reference")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    system = System(root, config, data.ids, data.items, bucket=bucket,
-                    device=device, traced=traced)
+    system = kind.open_system(root, config, data, prepared, device=device,
+                              traced=traced)
     stage("build")
     for op in data.mutations:
         system.mutate(op)
@@ -292,24 +306,16 @@ def set_up(name: str, seed: int, *, root: Path = ROOT, device: str = "cuda",
     for j in range(data.warmup_requests):
         system.query(data.request(-1 - j))
     stage("warm-up")
-    run = Run(name, config, traffic, data, dev,
-              reference_s=stages["bucket"])
+    run = Run(name, config, traffic, data, kind, dev,
+              reference_s=stages["reference"])
     run.notes["setup"] = ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
-    return run, system, base, limits
+    return run, system, prepared, limits
 
 
-def judge_run(run: Run, base: Catalog, seed: int) -> dict:
-    """The comparison's numbers for the answers ``run`` served, once the
-    window has closed and the program's state is freed."""
-    cfg, thr = run.config, float(run.config["gam"]["threshold"])
-    cat = live(run.data, thr, base, device=run.device)
-    run.n_live = len(cat.ids)
-    users, served = _sample(run, seed)
-    mo = int(cfg["spec"]["min_overlap"])
-    ref = answer(cat, users, threshold=thr, min_overlap=mo,
-                 kappa=int(cfg["spec"]["kappa"]), device=run.device)
-    return judge(served, ref, cat, users, threshold=thr, min_overlap=mo,
-                 device=run.device)
+def judge_run(run: Run, prepared, seed: int) -> dict:
+    """The comparison's numbers for what ``run`` served, once the window
+    has closed and the program's state is freed."""
+    return run.system_kind.judge(run, prepared, seed)
 
 
 def run(name: str, seed: int, seconds: float, traced: bool, *,
@@ -318,12 +324,13 @@ def run(name: str, seed: int, seconds: float, traced: bool, *,
         chips: int = 1) -> dict:
     """One run of cell ``name`` -> the result line's object."""
     t_start = time.perf_counter() if t_start is None else t_start
-    run, system, base, limits = set_up(name, seed, root=root, device=device,
-                                       overrides=overrides, traced=traced)
-    # the reference's sizing of the bucket is the benchmark's, not set-up's
+    run, system, prepared, limits = set_up(name, seed, root=root,
+                                           device=device, overrides=overrides,
+                                           traced=traced)
+    # the reference's work in set-up is the benchmark's, not the program's
     run.setup_s = time.perf_counter() - t_start - run.reference_s
     run.notes["setup"] += (f"; {run.setup_s:.3f} s in all but the "
-                           "reference's bucket")
+                           "reference's set-up")
     wanted = metrics_of(load_benchmark(root), name, traced)
     # a device-trace metric of --trace 0 has the window profiled too
     profiled = traced or any(m["source"] == "device_trace" for m in wanted)
@@ -336,9 +343,9 @@ def run(name: str, seed: int, seconds: float, traced: bool, *,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    numbers = judge_run(run, base, seed)
+    numbers = judge_run(run, prepared, seed)
     checks = {n: {"value": numbers[n], "limit": float(limits[n])}
-              for n in NUMBERS}
+              for n in run.system_kind.NUMBERS}
     correct = (run.failed == 0 and len(run.kept) > 0
                and all(c["value"] <= c["limit"] for c in checks.values()))
 

@@ -5,8 +5,9 @@
 
 For each seed: set-up as a run makes it, a short window of the program at
 the cell's own load, and the comparison's numbers; for each control seed
-also the control (``reference/control.py``) in the program's place over
-requests enough to fill the sample, and its numbers.  One JSON line a
+also the control (the cell's kind's ``control``, for retrieval
+``reference/control.py``) in the program's place over requests enough to
+fill the comparison, and its numbers.  One JSON line a
 reading on standard output.  Benchmark runs do not run this.
 """
 from __future__ import annotations
@@ -30,32 +31,29 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
-    from gpubench.bench import KEPT, Run, _window, judge_run, live, set_up
-    from gpubench.reference.control import Control
+    from gpubench.bench import Run, _window, judge_run, set_up
     for seed in args.seeds:
-        run, system, base, _ = set_up(args.workload, seed)
+        run, system, prepared, _ = set_up(args.workload, seed)
         _window(run, system, args.seconds, False, seed)
         system.close()
         del system
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        numbers = judge_run(run, base, seed)
+        numbers = judge_run(run, prepared, seed)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "side": "program", "requests": len(run.kept),
                           "reference_s": time.perf_counter() - t0,
                           **numbers}), flush=True)
         if seed not in args.control_seeds:
             continue
-        thr = float(run.config["gam"]["threshold"])
-        ctl = Control(live(run.data, thr, precision="low", device=run.device),
-                      run.config, run.device)
-        crun = Run(run.name, run.config, run.traffic, run.data, run.device)
-        need = -(-run.data.sample // min(KEPT, run.data.request_size))
+        ctl, need = run.system_kind.control(run, prepared)
+        crun = Run(run.name, run.config, run.traffic, run.data,
+                   run.system_kind, run.device)
         _window(crun, ctl, 0.0, False, seed, min_requests=need)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "side": "control", "requests": len(crun.kept),
-                          **judge_run(crun, base, seed)}), flush=True)
+                          **judge_run(crun, prepared, seed)}), flush=True)
     return 0
 
 

@@ -17,9 +17,8 @@ Traffic keys:
   together with factors drawn like the catalog's, then ``delete`` live ids
   drawn uniformly.
 * ``sample``: served queries the comparison judges after the window.
-* ``loop``, ``clients`` (optional): only ``"closed"`` and 1, the one shape
-  the window runs (one client sends each request once the last is
-  answered); any other value is refused, not run as closed.
+
+(``loop`` and ``clients`` are the window's: ``bench.set_up`` reads them.)
 """
 from __future__ import annotations
 
@@ -61,10 +60,6 @@ class Traffic:
 
 def make(data: dict, traffic: dict, seed: int) -> Traffic:
     """Draw the catalog, the users, the walk and the mutations."""
-    shape = (traffic.get("loop", "closed"), int(traffic.get("clients", 1)))
-    if shape != ("closed", 1):
-        raise ValueError(f"the window runs one closed-loop client, not "
-                         f"loop {shape[0]!r} with {shape[1]} clients")
     k, sigma = int(data["k"]), float(data["sigma"])
     _, centers = clustered_catalog(int(data["n_clusters"]), k,
                                    int(data["n_clusters"]), sigma,

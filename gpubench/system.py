@@ -1,6 +1,7 @@
-"""The system under test: ``repro_torch``'s retriever API, and the spans and
-counters the program keeps.  The one module of the benchmark that imports
-the program.
+"""The retrieval kind's system under test (``systems/retrieval.py`` opens
+it): ``repro_torch``'s retriever API, and the spans and counters the
+program keeps.  With ``systems/*.py``, the only modules of the benchmark
+that import the program, and only inside the system they open.
 
 A configuration's ``spec`` holds :class:`RetrieverSpec` fields by name and
 its ``gam`` the mapping's; ``bucket`` is passed in, as the harness sizes it

@@ -4,7 +4,7 @@ the run as it is (one card: no exchange between chips to leave out)."""
 import numpy as np
 import pytest
 
-from gpubench.tests._common import CELLS, small
+from gpubench.tests._common import RETRIEVAL_CELLS, small
 from gpubench import bench
 
 
@@ -26,7 +26,7 @@ def _alter_ids(monkeypatch, module):
     monkeypatch.setattr(module, "gam_retrieve", altered)
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", RETRIEVAL_CELLS)
 def test_an_answer_altered_where_produced(cell, monkeypatch):
     import repro_torch.retriever.gam as gam
     import repro_torch.service.sharded_index as sharded_index
@@ -37,7 +37,7 @@ def test_an_answer_altered_where_produced(cell, monkeypatch):
         out["checks"]["rank_gap"]["limit"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", RETRIEVAL_CELLS)
 def test_half_the_batch_left_out(cell, monkeypatch):
     """The first half of each request answered, its answers served for the
     second half as well."""
@@ -56,7 +56,7 @@ def test_half_the_batch_left_out(cell, monkeypatch):
     assert not _run(cell)["correct"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", RETRIEVAL_CELLS)
 def test_a_step_that_leaves_its_state_unchanged(cell, monkeypatch):
     """gam-device: every request answered with the first one's answer;
     sharded: set-up's upserts and deletes never land."""
@@ -86,11 +86,11 @@ def test_a_request_that_fails_is_counted(monkeypatch):
         return real(self, users)
 
     monkeypatch.setattr(System, "query", flaky)
-    out = _run(CELLS[0])
+    out = _run(RETRIEVAL_CELLS[0])
     assert out["failed"] == 1 and not out["correct"]
 
 
 def test_the_sound_program_is_correct():
-    for cell in CELLS:
+    for cell in RETRIEVAL_CELLS:
         out = _run(cell)
         assert out["correct"], (cell, out["checks"])

@@ -10,8 +10,6 @@ import pytest
 
 from gpubench.tests._common import BENCH, CELLS, ROOT, traffic_of
 from gpubench import bench
-from gpubench.gen import traffic as gen
-from gpubench.reference.compare import NUMBERS
 from gpubench.run import runtime_env
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -52,7 +50,7 @@ def test_each_cell_finds_its_files(cell):
     assert config["reduced"] == conf["reduced"]
     assert (bench.HERE / "traffic" / f"{work['traffic']}.json").exists()
     limits = json.loads((bench.HERE / "limits" / f"{cell}.json").read_text())
-    assert set(limits) == set(NUMBERS)
+    assert set(limits) == set(bench.system_kind(config).NUMBERS)
     for traced in (False, True):
         metrics = bench.metrics_of(BENCH, cell, traced)
         assert metrics, (cell, traced)
@@ -70,9 +68,8 @@ def test_each_cell_runs_the_shape_its_mix_names(cell):
     assert (mix.get("loop", "closed"), mix.get("clients", 1)) == ("closed", 1)
     for other in ({"loop": "open"}, {"clients": 4}):
         with pytest.raises(ValueError, match="closed-loop"):
-            gen.make({"n_items": 8, "n_users": 8, "k": 4, "n_clusters": 2,
-                      "sigma": 0.05, "center_seed": 1},
-                     dict(mix, **other), 1)
+            bench.set_up(cell, 1, device="cpu",
+                         overrides={"traffic": other})
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -1,6 +1,7 @@
-"""No module under ``gpubench/`` imports JAX or the JAX package, and the
-reference imports nothing of the program: top-level names compared whole
-(``repro_torch`` is the program, not ``repro``)."""
+"""No module under ``gpubench/`` imports JAX or the JAX package; only
+``system.py`` and ``systems/*.py`` import the program, and only inside the
+system they open; the reference imports nothing of it: top-level names
+compared whole (``repro_torch`` is the program, not ``repro``)."""
 import ast
 import subprocess
 import sys
@@ -12,11 +13,16 @@ from gpubench.tests._common import ROOT, small
 BENCH_DIR = ROOT / "gpubench"
 FILES = sorted(p for p in BENCH_DIR.rglob("*.py") if "tests" not in p.parts)
 JAX = {"jax", "jaxlib", "flax", "repro"}
+#: the modules that may import the program
+OPENERS = {BENCH_DIR / "system.py", *(BENCH_DIR / "systems").glob("*.py")}
 
 
-def _imports(path) -> set:
+def _imports(path, module_level: bool = False) -> set:
+    """Top-level names ``path`` imports (``module_level``: in the module's
+    own statements, outside every function and class)."""
+    tree = ast.parse(path.read_text())
     out = set()
-    for node in ast.walk(ast.parse(path.read_text())):
+    for node in (tree.body if module_level else ast.walk(tree)):
         if isinstance(node, ast.Import):
             out |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.module and \
@@ -29,6 +35,15 @@ def _imports(path) -> set:
     p.relative_to(BENCH_DIR)))
 def test_no_jax(path):
     assert not _imports(path) & JAX
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(
+    p.relative_to(BENCH_DIR)))
+def test_only_the_systems_import_the_program(path):
+    if path in OPENERS:
+        assert "repro_torch" not in _imports(path, module_level=True)
+    else:
+        assert "repro_torch" not in _imports(path)
 
 
 @pytest.mark.parametrize("path", sorted((BENCH_DIR / "reference").glob(

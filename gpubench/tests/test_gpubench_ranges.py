@@ -3,7 +3,7 @@
 every cell."""
 import pytest
 
-from gpubench.tests._common import BENCH, CELLS, small
+from gpubench.tests._common import BENCH, CELLS, RETRIEVAL_CELLS, small
 from gpubench import bench
 from gpubench.trace import Profile, _union
 
@@ -109,7 +109,7 @@ def test_each_stage_metric_is_declared_for_the_accepted_cells(metric):
                                                                 CELLS))
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", RETRIEVAL_CELLS)
 def test_a_small_traced_cpu_run_reports_the_host_stages(cell):
     out = bench.run(cell, 2**31 + 17, 0.3, True, device="cpu",
                     overrides=small(cell))
